@@ -1,0 +1,75 @@
+"""Build the port's CUDA kernels and bind them with ctypes.
+
+Each kernel source under ``repro_torch/kernels/<name>/csrc/`` has a plain
+``extern "C"`` launcher, so it compiles in seconds with ``nvcc`` alone (no
+PyTorch headers) into ``build/kernels/lib<name>.so`` at the repository
+root, a directory git ignores. The build runs at first use in a process
+and again whenever the source is newer than the library; the loaded
+library is cached for the life of the process. ``-Xptxas -v`` reports each
+kernel's registers and shared memory; the report is kept beside the
+library (``<name>.ptxas.txt``) and in :data:`BUILD_INFO`.
+
+Nothing here runs at import: this module is imported on machines that have
+no CUDA toolkit, where only the plain versions of the kernels run.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+# name -> {"seconds": build wall time (0.0 when the library was current),
+#          "ptxas": the -Xptxas -v report}
+BUILD_INFO: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: building the CUDA kernels needs "
+                           "the CUDA toolkit (nvcc on PATH or under "
+                           "/usr/local/cuda)")
+    return path
+
+
+def build(name: str, source: Path) -> Path:
+    """Compile ``source`` into ``BUILD_DIR/lib<name>.so`` unless the library
+    is newer than the source. Raises with nvcc's output on failure."""
+    lib = BUILD_DIR / f"lib{name}.so"
+    report = BUILD_DIR / f"{name}.ptxas.txt"
+    if lib.exists() and lib.stat().st_mtime >= source.stat().st_mtime:
+        BUILD_INFO.setdefault(name, {
+            "seconds": 0.0,
+            "ptxas": report.read_text() if report.exists() else ""})
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build under a private name and rename: concurrent processes never
+    # load a half-written library
+    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
+                           f"{source}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    report.write_text(proc.stderr)
+    BUILD_INFO[name] = {"seconds": seconds, "ptxas": proc.stderr}
+    return lib
+
+
+def load(name: str, source: Path) -> ctypes.CDLL:
+    """The ctypes handle of kernel library ``name``, built on first use."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(build(name, source)))
+    return _LIBS[name]

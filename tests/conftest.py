@@ -34,6 +34,10 @@ def pytest_configure(config):
         "markers",
         "timeout_s(seconds): per-test wall-clock budget enforced by the "
         "SIGALRM hang guard (see tests/conftest.py)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device; the test skips itself where none is "
+        "present (run on the card: python -m pytest -m gpu tests/)")
 
 
 @pytest.fixture(autouse=True)
