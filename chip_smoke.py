@@ -7,9 +7,10 @@ Phases, each of which makes the script exit non-zero when it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``), its PyTorch
    name and the device count; no CUDA device means exit 1;
-2. build: compiles the waterfill kernel from ``src/repro_torch/kernels``
-   with nvcc (``sm_90a``) and prints the build time and ptxas's register and
-   shared-memory report;
+2. build: compiles every kernel from ``src/repro_torch/kernels`` with nvcc
+   (``sm_90a``), one nvcc per source, all started together, and prints the
+   waterfill kernel's build time and ptxas's register and shared-memory
+   report;
 3. kernel vs plain version on the card, in the shared-row and the dense
    layout, at the allocator benchmark's shape (10⁴ links × 10³ flows) and
    at the datacenter scenario's (640 links × 12,417 flows): max |Δ| ≤
@@ -24,7 +25,29 @@ Phases, each of which makes the script exit non-zero when it fails:
    600 s, tcp and appaware (``"waterfill"`` and ``"sort"``): finite metrics,
    appaware beats tcp, the two solvers agree within 2%. This appaware
    ``"waterfill"`` run is the main-path run whose kernel launches are
-   reported.
+   reported;
+6. build of the LM serving path's kernels (flash attention, SSD chunk),
+   compiled in phase 2: build time and ptxas's report;
+7. those kernels vs their plain versions on the card, at zamba2-1.2b's
+   serving shapes (flash: B 4, H = K = 32, S = T = 512, hd 64, float32 and
+   bfloat16; SSD chunk: BH 4·64, 4 chunks of 128, P 64, N 64), plus a GQA
+   shape (H 8, K 2), a ragged S (300) and mamba2-370m's N = 128: max |Δ| ≤
+   2e-5 (flash float32), 2e-2 (flash bfloat16), 1e-4 (SSD), the JAX
+   tests' own tolerances; prints each kernel's time (CUDA events), its
+   plain version's, SDPA's for flash, and the bound;
+8. serving zamba2-1.2b at full width (random weights from a fixed
+   ``torch.Generator`` seed, on the card, bfloat16): ``ServeEngine`` with 4
+   slots serves 8 requests of 512 prompt tokens (numpy, seeded) and 32 new
+   tokens each. This is the LM path's main-path run: every logit is
+   finite, every request gets 32 tokens, and flash attention launches
+   exactly 12 times (6 shared-block applications per wave) and the SSD
+   chunk kernel 76 times (38 Mamba2 layers per wave). Prints prefill ms per
+   wave and decode ms per step (each timed apart from the served run), the
+   served run's own decode ms per step, tokens/s and peak device memory.
+   Then zamba2-1.2b at full width cut to 7 layers (one group and a 1-layer
+   tail), float32, B 2, S 256, runs on the card (kernels) and on the CPU
+   (plain versions) from the same weights: prefill logits and 4 decode
+   steps agree within 1e-5·max|logits|.
 
 Before its last line the script prints one JSON object describing each
 kernel, then the card's name and power limit; the last line is
@@ -44,6 +67,7 @@ ROOT = Path(__file__).resolve().parent
 # outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12      # dense, on the tensor cores
 
 # JAX reference (repro.streams.simulate, 600 s, dt 0.5, big_switch(8, c)):
 # throughput in tuples/s, tcp -> appaware; the same with the Pallas and
@@ -103,6 +127,12 @@ def waterfill_bound_ms(mask, kind01, dense: bool) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_F32_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def print_build(label: str, info: dict) -> None:
+    usage = [ln.strip() for ln in info["ptxas"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"build: {label} in {info['seconds']:.2f} s; " + " | ".join(usage))
 
 
 def bench_problem(rng, L: int, F: int):
@@ -223,13 +253,19 @@ def main() -> int:
     dev = torch.device("cuda:0")
 
     # ---- 2. build -------------------------------------------------------
-    (build.BUILD_DIR / "libwaterfill.so").unlink(missing_ok=True)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    sources = {"waterfill": ops.SOURCE, fa_ops.NAME: fa_ops.SOURCE,
+               ssd_ops.NAME: ssd_ops.SOURCE}
+    for name in sources:
+        (build.BUILD_DIR / f"lib{name}.so").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    build.build_all(sources)
+    print(f"build: {len(sources)} kernels in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    print_build("waterfill.cu", build.BUILD_INFO["waterfill"])
     ops._lib()
-    info = build.BUILD_INFO["waterfill"]
-    usage = [ln.strip() for ln in info["ptxas"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build: waterfill.cu in {info['seconds']:.2f} s; "
-          + " | ".join(usage))
 
     # ---- 3. kernel vs plain ---------------------------------------------
     results = {}
@@ -313,11 +349,296 @@ def main() -> int:
         "bound_by": main["bound_by"],
         "library_ms": None,
     }]
+
+    # ---- 6. build of the LM path's kernels (compiled in phase 2) --------
+    print_build("flash_attention.cu", build.BUILD_INFO[fa_ops.NAME])
+    print_build("ssd_chunk.cu", build.BUILD_INFO[ssd_ops.NAME])
+
+    # ---- 7. LM kernels vs plain versions --------------------------------
+    flash = phase_flash(dev)
+    ssd = phase_ssd(dev)
+
+    # ---- 8. serve zamba2-1.2b at full width (the LM main-path run) ------
+    launches = phase_serve(dev)
+    phase_numeric_7layer(dev)
+
+    for name, src, rep, res, lib_ms in (
+            ("flash_attention",
+             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:78", flash,
+             flash["library_ms"]),
+            ("ssd_chunk", "src/repro_torch/kernels/ssd_scan/csrc/ssd_chunk.cu",
+             "src/repro/kernels/ssd_scan/kernel.py:54", ssd, None)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name], "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": lib_ms})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0
+
+
+# ---- the LM serving path (phases 7-8) ------------------------------------
+SERVE_B, SERVE_S, SERVE_NEW, SERVE_REQS = 4, 512, 32, 8
+# card vs CPU on the 7-layer f32 model, relative to max|logits|: float32
+# sums in another order measured ~3e-7, so this leaves ~30x room and still
+# catches a kernel that rounds its float32 operands to bfloat16
+NUMERIC_RTOL = 1e-5
+
+
+def bound(n_bytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / peak_ops
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_bound_ms(B, S, T, H, K, hd, dtype, causal=True):
+    """q, k, v read and o written once; 4·hd flops per (query, key) pair
+    that the mask keeps (two products), at the inputs' rate."""
+    import torch
+
+    size = 2 if dtype == torch.bfloat16 else 4
+    n_bytes = size * (2 * B * S * H * hd + 2 * B * T * K * hd)
+    pairs = (sum(min(i + 1, T) for i in range(S)) if causal else S * T)
+    peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_F32_S
+    return bound(n_bytes, 4 * hd * B * H * pairs, peak)
+
+
+def ssd_bound_ms(BH, nc, Q, P, N, Bsz):
+    """x, dt, B, C, A read and y, states, cum written once (float32); the
+    three products on the causal triangle (C·Bᵀ and M·x over Q(Q+1)/2
+    pairs, the state over all Q rows), at the float32 rate."""
+    n_bytes = 4 * (2 * BH * nc * Q * P + 2 * BH * nc * Q
+                   + 2 * Bsz * nc * Q * N + BH + BH * nc * P * N)
+    tri = Q * (Q + 1) // 2
+    ops = BH * nc * (2 * tri * N + 2 * tri * P + 2 * Q * P * N)
+    return bound(n_bytes, ops, PEAK_F32_S)
+
+
+def phase_flash(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    worst, timed = 0.0, {}
+    for label, (B, S, H, K, hd), dtype, tol in (
+            ("serving f32", (SERVE_B, SERVE_S, 32, 32, 64), torch.float32,
+             2e-5),
+            ("serving bf16", (SERVE_B, SERVE_S, 32, 32, 64), torch.bfloat16,
+             2e-2),
+            ("GQA H8/K2", (SERVE_B, SERVE_S, 8, 2, 64), torch.float32, 2e-5),
+            ("ragged S300", (2, 300, 8, 2, 64), torch.float32, 2e-5)):
+        q = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
+        k = torch.randn(B, S, K, hd, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, S, K, hd, generator=g, device=dev).to(dtype)
+        out = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        plain = attention_plain(qt, kt, vt, True).transpose(1, 2)
+        err = float((out.float() - plain.float()).abs().max())
+        check(bool(torch.isfinite(out).all()), f"flash {label}: finite")
+        check(err <= tol, f"flash {label}: max|Δ| {err} > {tol}")
+        worst = max(worst, err)
+        ms = event_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                      reps=20)
+        plain_ms = event_ms(lambda: attention_plain(qt, kt, vt, True),
+                            reps=5, warmup=1)
+        bound_ms, bound_by = flash_bound_ms(B, S, S, H, K, hd, dtype)
+        lib, lib_ms = "", None
+        if H == K:
+            lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), reps=20)
+            lib = f", SDPA {lib_ms:.4f} ms"
+        print(f"kernel flash_attention {label} [B{B} S{S} H{H} K{K} hd{hd} "
+              f"{str(dtype)[6:]}]: max_abs_err {err:.3e} (tol {tol:g}), "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), bound/kernel "
+              f"{bound_ms / ms:.4f}")
+        if label == "serving bf16":
+            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms)
+    return dict(timed, max_abs_err=worst)
+
+
+def phase_ssd(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_plain
+
+    rng = np.random.default_rng(0)
+    worst, timed = 0.0, {}
+    # zamba2-1.2b: 64 SSD heads of 64, N 64; mamba2-370m: 32 heads, N 128
+    for label, (Bsz, H, nc, Q, P, N) in (
+            ("zamba2 N64", (SERVE_B, 64, SERVE_S // 128, 128, 64, 64)),
+            ("mamba2 N128", (SERVE_B, 32, SERVE_S // 128, 128, 64, 128))):
+        BH = Bsz * H
+
+        def t(a):
+            return torch.tensor(np.asarray(a, np.float32), device=dev)
+        args = (t(rng.standard_normal((BH, nc, Q, P)) * 0.5),
+                t(rng.uniform(0.01, 0.2, (BH, nc, Q, 1))),
+                t(rng.standard_normal((Bsz, nc, Q, N)) * 0.5),
+                t(rng.standard_normal((Bsz, nc, Q, N)) * 0.5),
+                t(-rng.uniform(0.5, 2.0, (BH, 1))))
+        got = ssd.ssd_chunk(*args)
+        torch.cuda.synchronize()
+        want = ssd_chunk_plain(*args)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        check(all(bool(torch.isfinite(a).all()) for a in got),
+              f"ssd {label}: finite")
+        check(err <= 1e-4, f"ssd {label}: max|Δ| {err} > 1e-4")
+        worst = max(worst, err)
+        ms = event_ms(lambda: ssd.ssd_chunk(*args), reps=20)
+        plain_ms = event_ms(lambda: ssd_chunk_plain(*args), reps=5,
+                            warmup=1)
+        bound_ms, bound_by = ssd_bound_ms(BH, nc, Q, P, N, Bsz)
+        print(f"kernel ssd_chunk {label} [BH{BH} nc{nc} Q{Q} P{P} N{N}]: "
+              f"max_abs_err {err:.3e} (tol 1e-4), kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"bound/kernel {bound_ms / ms:.4f}")
+        if label == "zamba2 N64":
+            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+    return dict(timed, max_abs_err=worst)
+
+
+def phase_serve(dev) -> dict:
+    """zamba2-1.2b at full width through ServeEngine; returns the kernel
+    launches of this run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config("zamba2-1.2b")
+    api = get_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    model = api.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"serve: zamba2-1.2b, {api.count_params():,} parameters, "
+          f"{str(cfg.dtype)[6:]}, initialised on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (SERVE_REQS, SERVE_S)).astype(
+        np.int32)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def sampler(logits):
+        finite.logical_and_(torch.isfinite(logits).all())
+        return torch.argmax(logits, -1)
+    eng = ServeEngine(api, max_len=SERVE_S + SERVE_NEW,
+                      batch_slots=SERVE_B, sampler=sampler)
+    eng.load(model)
+    reqs = [Request(prompt=p, max_new_tokens=SERVE_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = ssd.LAUNCHES = 0
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.LAUNCHES, "ssd_chunk": ssd.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"serve: {SERVE_REQS} requests x {SERVE_S} prompt tokens, "
+          f"{SERVE_NEW} new each, {SERVE_B} slots: {wall:.3f} s wall, "
+          f"{n_tok} tokens, {n_tok / wall:.2f} generated tokens/s, "
+          f"{SERVE_REQS * (SERVE_S + SERVE_NEW) / wall:.1f} tokens/s "
+          f"prompt+generated; launches flash {launches['flash_attention']}, "
+          f"ssd_chunk {launches['ssd_chunk']}; peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    check(all(len(r.out) == SERVE_NEW for r in reqs),
+          f"serve: every request got {SERVE_NEW} tokens")
+    check(bool(finite), "serve: every logit finite")
+    n_waves = SERVE_REQS // SERVE_B
+    groups = cfg.n_layers // cfg.hybrid_attn_every
+    check(launches["flash_attention"] == n_waves * groups,
+          f"serve: flash launches {launches['flash_attention']} != "
+          f"{n_waves * groups}")
+    check(launches["ssd_chunk"] == n_waves * cfg.n_layers,
+          f"serve: ssd_chunk launches {launches['ssd_chunk']} != "
+          f"{n_waves * cfg.n_layers}")
+
+    # per-phase device times for one wave (outside the counted run)
+    toks = torch.as_tensor(prompts[:SERVE_B], dtype=torch.long, device=dev)
+    prefill_ms = event_ms(lambda: api.prefill(model, {"tokens": toks},
+                                              SERVE_S + SERVE_NEW),
+                          reps=3, warmup=1)
+    _, cache = api.prefill(model, {"tokens": toks}, SERVE_S + SERVE_NEW)
+    nxt = toks[:, -1:]
+    pos = [SERVE_S]
+
+    def step():
+        api.decode(model, cache, nxt, pos[0])
+        pos[0] += 1
+    decode_ms = event_ms(step, reps=SERVE_NEW - 8, warmup=4)
+    steps = n_waves * (SERVE_NEW - 1)
+    served_decode_ms = (wall * 1e3 - n_waves * prefill_ms) / steps
+    print(f"serve: prefill {prefill_ms:.3f} ms per wave of "
+          f"{SERVE_B}x{SERVE_S}; decode {decode_ms:.3f} ms per step of "
+          f"{SERVE_B} tokens ({SERVE_B * 1e3 / decode_ms:.1f} tokens/s), "
+          f"both timed apart from the served run")
+    print(f"serve: the served run's decode, (wall - {n_waves} x prefill) / "
+          f"{steps} steps: {served_decode_ms:.3f} ms per step")
+    del model, cache, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_numeric_7layer(dev) -> None:
+    """zamba2-1.2b at full width cut to 7 layers, float32: the card
+    (kernels) against the CPU (plain versions), same weights."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_config, get_model
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=7,
+                              dtype=torch.float32)
+    api = get_model(cfg, device=dev)
+    model = api.init(torch.Generator(device=dev).manual_seed(1))
+    cpu_model = copy.deepcopy(model).cpu()
+    rng = np.random.default_rng(1)
+    B, S, steps = 2, 256, 4
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S + steps)),
+                           dtype=torch.long)
+    t0 = time.perf_counter()
+    lg, cache = lm.prefill(cfg, model, toks[:, :S].to(dev), S + steps)
+    lc, ccache = lm.prefill(cfg, cpu_model, toks[:, :S], S + steps)
+    pairs = [(lg.cpu(), lc)]
+    for i in range(S, S + steps):
+        lg, cache = lm.decode_step(cfg, model, cache, toks[:, i:i + 1].to(dev),
+                                   i)
+        lc, ccache = lm.decode_step(cfg, cpu_model, ccache, toks[:, i:i + 1],
+                                    i)
+        pairs.append((lg.cpu(), lc))
+    for n, (a, b) in enumerate(pairs):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        what = "prefill" if n == 0 else f"decode step {n}"
+        check(bool(torch.isfinite(a).all()), f"7-layer {what}: finite")
+        check(err <= NUMERIC_RTOL * scale, f"7-layer {what}: max|Δ| {err} > "
+                                           f"{NUMERIC_RTOL} x {scale}")
+        print(f"numeric: zamba2-1.2b full width, 7 layers, f32, B{B} S{S}, "
+              f"{what}: card vs CPU max|Δ| {err:.3e} (max|logit| "
+              f"{scale:.3e}, tol {NUMERIC_RTOL}x)")
+    print(f"numeric: done in {time.perf_counter() - t0:.2f} s")
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ Each kernel source under ``repro_torch/kernels/<name>/csrc/`` has a plain
 PyTorch headers) into ``build/kernels/lib<name>.so`` at the repository
 root, a directory git ignores. The build runs at first use in a process
 and again whenever the source is newer than the library; the loaded
-library is cached for the life of the process. ``-Xptxas -v`` reports each
+library is cached for the life of the process; :func:`build_all` starts one
+``nvcc`` per stale source at once. ``-Xptxas -v`` reports each
 kernel's registers and shared memory; the report is kept beside the
 library (``<name>.ptxas.txt``) and in :data:`BUILD_INFO`.
 
@@ -40,32 +41,53 @@ def _nvcc() -> str:
     return path
 
 
+def build_all(sources: dict[str, Path]) -> dict[str, Path]:
+    """Compile each ``name -> source`` into ``BUILD_DIR/lib<name>.so`` unless
+    the library is newer than the source: one nvcc process per stale source,
+    all started together. Raises with nvcc's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    libs, running = {}, {}
+    for name, source in sources.items():
+        lib = libs[name] = BUILD_DIR / f"lib{name}.so"
+        report = BUILD_DIR / f"{name}.ptxas.txt"
+        if lib.exists() and lib.stat().st_mtime >= source.stat().st_mtime:
+            BUILD_INFO.setdefault(name, {
+                "seconds": 0.0,
+                "ptxas": report.read_text() if report.exists() else ""})
+            continue
+        # build under a private name and rename: concurrent processes never
+        # load a half-written library
+        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        # nvcc's output goes to a file: pipes read one after another could
+        # stall a later build on a full pipe
+        log = BUILD_DIR / f"{name}.{os.getpid()}.log"
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+        running[name] = (proc, tmp, log, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, log, t0) in running.items():
+        proc.wait()
+        seconds = time.perf_counter() - t0
+        text = log.read_text()
+        log.unlink()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed ({proc.returncode}) building "
+                            f"{sources[name]}:\n{text}")
+            continue
+        os.replace(tmp, libs[name])
+        (BUILD_DIR / f"{name}.ptxas.txt").write_text(text)
+        BUILD_INFO[name] = {"seconds": seconds, "ptxas": text}
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return libs
+
+
 def build(name: str, source: Path) -> Path:
     """Compile ``source`` into ``BUILD_DIR/lib<name>.so`` unless the library
     is newer than the source. Raises with nvcc's output on failure."""
-    lib = BUILD_DIR / f"lib{name}.so"
-    report = BUILD_DIR / f"{name}.ptxas.txt"
-    if lib.exists() and lib.stat().st_mtime >= source.stat().st_mtime:
-        BUILD_INFO.setdefault(name, {
-            "seconds": 0.0,
-            "ptxas": report.read_text() if report.exists() else ""})
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a private name and rename: concurrent processes never
-    # load a half-written library
-    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{source}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    report.write_text(proc.stderr)
-    BUILD_INFO[name] = {"seconds": seconds, "ptxas": proc.stderr}
-    return lib
+    return build_all({name: source})[name]
 
 
 def load(name: str, source: Path) -> ctypes.CDLL:

@@ -1,12 +1,15 @@
-"""Tests of the port that need a CUDA device: the waterfill kernel against
-its plain version, and the simulator's main path on the card against the
-same run on the CPU. They import no JAX, so they run on a machine that has
+"""Tests of the port that need a CUDA device: the waterfill, flash-attention
+and SSD chunk kernels against their plain versions, the simulator's main
+path and a reduced zamba2 serve on the card against the same runs on the
+CPU. They import no JAX, so they run on a machine that has
 only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each test decides inside itself whether a card is present and skips where
 none is."""
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -85,3 +88,136 @@ def test_simulate_on_card_matches_cpu():
     tcp_cpu = simulate(sim, "tcp", seconds=120.0, device="cpu")
     np.testing.assert_allclose(tcp_card.metrics, tcp_cpu.metrics, rtol=1e-4,
                                atol=1e-4)
+
+
+# ---- the LM serving path's kernels ----------------------------------------
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,T,H,K,hd", [(2, 128, 128, 4, 2, 64),
+                                          (1, 300, 300, 8, 2, 64),
+                                          (2, 64, 64, 4, 1, 128),
+                                          (1, 37, 100, 6, 3, 32),
+                                          (2, 20, 20, 4, 4, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(B, S, T, H, K, hd, causal,
+                                              dtype, tol):
+    """The CUDA kernel against its plain version on the card, at the JAX
+    tests' tolerances (2e-5 float32, 2e-2 bfloat16); ragged S and T."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(S * H + hd)
+    q = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, T, K, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, T, K, hd, generator=g, device=dev).to(dtype)
+    before = fa.LAUNCHES
+    out = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    plain = attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal).transpose(1, 2)
+    err = float((out.float() - plain.float()).abs().max())
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("Bsz,H,nc,Q,P,N", [(2, 3, 2, 128, 64, 64),
+                                             (1, 4, 3, 128, 64, 128),
+                                             (2, 2, 4, 32, 16, 8),
+                                             (1, 2, 1, 12, 64, 16)])
+def test_ssd_chunk_kernel_matches_plain(Bsz, H, nc, Q, P, N):
+    """The CUDA chunk kernel against its plain version at 1e-4 (the JAX
+    tests' tolerance for the chunked scan), and the whole ssd_scan on the
+    card against the sequential oracle."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_plain, ssd_ref_plain
+
+    dev = _cuda()
+    rng = np.random.default_rng(Q * N + H)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+    BH = Bsz * H
+    x = t(rng.standard_normal((BH, nc, Q, P)) * 0.5)
+    dt = t(rng.uniform(0.01, 0.2, (BH, nc, Q, 1)))
+    Bm = t(rng.standard_normal((Bsz, nc, Q, N)) * 0.5)
+    Cm = t(rng.standard_normal((Bsz, nc, Q, N)) * 0.5)
+    A = t(-rng.uniform(0.5, 2.0, (BH, 1)))
+    before = ssd.LAUNCHES
+    got = ssd.ssd_chunk(x, dt, Bm, Cm, A)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES == before + 1
+    for g_, w_ in zip(got, ssd_chunk_plain(x, dt, Bm, Cm, A)):
+        assert float((g_ - w_).abs().max()) <= 1e-4
+
+    S = nc * Q
+    xs = t(rng.standard_normal((Bsz, S, H, P)) * 0.5)
+    dts = t(rng.uniform(0.01, 0.2, (Bsz, S, H)))
+    As = t(-rng.uniform(0.5, 2.0, (H,)))
+    Bs = t(rng.standard_normal((Bsz, S, N)) * 0.5)
+    Cs = t(rng.standard_normal((Bsz, S, N)) * 0.5)
+    y, h = ssd.ssd_scan(xs, dts, As, Bs, Cs, chunk=Q)
+    yr, hr = ssd_ref_plain(xs, dts, As, Bs, Cs)
+    assert float((y - yr).abs().max()) <= 1e-4
+    assert float((h - hr).abs().max()) <= 1e-4
+
+
+def test_lm_kernels_raise_on_wrong_device_or_dtype():
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    dev = _cuda()
+    q = torch.randn(1, 8, 4, 16, device=dev)
+    with pytest.raises(ValueError, match="is on"):
+        fa.flash_attention(q, q.cpu(), q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    x = torch.randn(2, 1, 16, 8, device=dev)
+    dt = torch.rand(2, 1, 16, 1, device=dev)
+    Bm = torch.randn(1, 1, 16, 4, device=dev)
+    A = -torch.rand(2, 1, device=dev)
+    with pytest.raises(ValueError, match="is on"):
+        ssd.ssd_chunk(x, dt.cpu(), Bm, Bm, A)
+    with pytest.raises(TypeError, match="float32"):
+        ssd.ssd_chunk(x.double(), dt, Bm, Bm, A)
+
+
+def test_serve_on_card_matches_cpu():
+    """A reduced zamba2 (with a tail layer) served on the card, through
+    both kernels, against the same serve on the CPU: identical tokens, and
+    prefill logits within 1e-4 (float32 on both sides, fp32 matmuls)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.serve import Request, ServeEngine
+
+    _cuda()
+    cfg = get_config("zamba2-1.2b").reduced(n_layers=7)
+    api = get_model(cfg)                                  # default: the card
+    assert api.device.type == "cuda"
+    model = api.init(torch.Generator(device="cuda").manual_seed(0))
+    cpu_api = get_model(cfg, device="cpu")
+    cpu_model = copy.deepcopy(model).cpu()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 64).astype(np.int32)
+               for _ in range(4)]
+    outs = {}
+    for name, a, m in (("card", api, model), ("cpu", cpu_api, cpu_model)):
+        eng = ServeEngine(a, max_len=96, batch_slots=2)
+        eng.load(m)
+        reqs = [Request(prompt=p, max_new_tokens=8) for p in prompts]
+        f0, s0 = fa.LAUNCHES, ssd.LAUNCHES
+        eng.run(reqs)
+        outs[name] = [r.out for r in reqs]
+        if name == "card":
+            # 2 waves x (2 shared-block applications; 7 Mamba2 layers)
+            assert fa.LAUNCHES - f0 == 4 and ssd.LAUNCHES - s0 == 14
+        else:
+            assert fa.LAUNCHES == f0 and ssd.LAUNCHES == s0
+    assert outs["card"] == outs["cpu"]
+    toks = torch.tensor(np.stack(prompts[:2]), dtype=torch.long)
+    lc, _ = lm.prefill(cfg, model, toks.cuda(), 96)
+    lp, _ = lm.prefill(cfg, cpu_model, toks, 96)
+    assert float((lc.cpu() - lp).abs().max()) <= 1e-4

@@ -1,15 +1,20 @@
-"""Where the time goes in the PyTorch port's tick loop, on one CUDA card.
+"""Where the time goes in the PyTorch port, on one CUDA card.
 
     python3 tools/port_profile.py
 
-For the paper-grid cell (TT on big_switch(8, 1.25)) and the datacenter
-cell (TT at 64-way parallelism on a 256-machine fat-tree, as in
+Simulation: for the paper-grid cell (TT on big_switch(8, 1.25)) and the
+datacenter cell (TT at 64-way parallelism on a 256-machine fat-tree, as in
 chip_smoke.py), and for tcp and appaware (solver="waterfill"): a warm-up
 30 s simulation (60 ticks), a timed one, and one under torch.profiler.
-Prints per tick the wall time of the timed run, the summed device time of
-all device activities in the profiled run, the device's idle share
-(1 − device/wall), and the kernels that take most device time.
-Imports no JAX; needs a CUDA device.
+
+Serving: zamba2-1.2b at full width (bf16, random weights from a seed), one
+wave of chip_smoke.py's serving run: the prefill of 4 × 512 tokens, and 8
+decode steps of 4 tokens, each warmed up, timed and profiled the same way.
+
+Prints per unit (tick, prefill, decode step) the wall time of the timed
+run, the summed device time of all device activities in the profiled run,
+the device's idle share (1 − device/wall), and the kernels that take most
+device time. Imports no JAX; needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -36,6 +41,67 @@ def _cells():
     yield "datacenter", compile_sim(g, topo, round_robin(g, topo.n_machines))
 
 
+def _report(label: str, fn, n_units: int, unit: str) -> None:
+    """Warm up, time and profile ``fn`` (``n_units`` units of work)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n_units
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0) / n_units
+    # device activities only (kernels, copies, fills): the CPU-side aten ops
+    # that launched them carry the same device time
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    n_launch = sum(e.count for e in kernels)
+    busy_ms = 1e-3 * busy_us / n_units
+    print(f"\n{label}: wall {wall_ms:.3f} ms/{unit} ({prof_ms:.3f} "
+          f"profiled), device {busy_ms:.3f} ms/{unit}, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}, {n_launch / n_units:.1f} device "
+          f"activities/{unit}")
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    for e in kernels[:8]:
+        print(f"  {e.self_device_time_total / busy_us:6.1%} "
+              f"{1e-3 * e.self_device_time_total / n_units:8.4f} "
+              f"ms/{unit} x{e.count / n_units:6.1f}  {e.key[:90]}")
+
+
+def _serve(n_decode: int = 8) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.models.registry import get_config, get_model
+
+    B, S, max_len = 4, 512, 544
+    api = get_model(get_config("zamba2-1.2b"))
+    model = api.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, api.cfg.vocab, (B, S)), dtype=torch.long, device="cuda")
+    _report("zamba2-1.2b serving [4 x 512 tokens] prefill",
+            lambda: api.prefill(model, {"tokens": toks}, max_len), 1,
+            "wave")
+    _, cache = api.prefill(model, {"tokens": toks}, max_len)
+    nxt = toks[:, -1:]
+
+    def decode():
+        for i in range(n_decode):
+            api.decode(model, cache, nxt, S + i)
+    _report("zamba2-1.2b serving [4 x 512 tokens] decode", decode,
+            n_decode, "step")
+
+
 def main() -> int:
     import torch
 
@@ -43,9 +109,6 @@ def main() -> int:
         print("port_profile: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.streams import simulate
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -55,36 +118,10 @@ def main() -> int:
     for cell, sim in _cells():
         F, L = sim.R.shape
         for policy, solver in (("tcp", "sort"), ("appaware", "waterfill")):
-            simulate(sim, policy, seconds=SECONDS, dt=DT, solver=solver)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            simulate(sim, policy, seconds=SECONDS, dt=DT, solver=solver)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0) / n_ticks
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                simulate(sim, policy, seconds=SECONDS, dt=DT, solver=solver)
-                torch.cuda.synchronize()
-                prof_ms = 1e3 * (time.perf_counter() - t0) / n_ticks
-            # device activities only (kernels, copies, fills): the CPU-side
-            # aten ops that launched them carry the same device time
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and e.self_device_time_total > 0]
-            busy_us = sum(e.self_device_time_total for e in kernels)
-            n_launch = sum(e.count for e in kernels)
-            busy_ms = 1e-3 * busy_us / n_ticks
-            print(f"\n{cell} [{F} flows x {L} links] {policy}/{solver}: "
-                  f"wall {wall_ms:.3f} ms/tick ({prof_ms:.3f} profiled), "
-                  f"device {busy_ms:.3f} ms/tick, idle share "
-                  f"{1 - busy_ms / wall_ms:.3f}, "
-                  f"{n_launch / n_ticks:.1f} device activities/tick")
-            kernels.sort(key=lambda e: -e.self_device_time_total)
-            for e in kernels[:8]:
-                print(f"  {e.self_device_time_total / busy_us:6.1%} "
-                      f"{1e-3 * e.self_device_time_total / n_ticks:8.4f} "
-                      f"ms/tick x{e.count / n_ticks:6.1f}  {e.key[:90]}")
+            _report(f"{cell} [{F} flows x {L} links] {policy}/{solver}",
+                    lambda: simulate(sim, policy, seconds=SECONDS, dt=DT,
+                                     solver=solver), n_ticks, "tick")
+    _serve()
     return 0
 
 
