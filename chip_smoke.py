@@ -8,15 +8,18 @@ Phases, each of which makes the script exit non-zero when it fails:
 1. device: the card's name and power limit (``nvidia-smi``), its PyTorch
    name and the device count; no CUDA device means exit 1;
 2. build: compiles every kernel from ``src/repro_torch/kernels`` with nvcc
-   (``sm_90a``), one nvcc per source, all started together, and prints the
-   waterfill kernel's build time and ptxas's register and shared-memory
-   report;
+   (``sm_90a``), one nvcc per source, all started together, and prints
+   each source's build time and, per kernel function, ptxas's registers,
+   shared memory and spills;
 3. kernel vs plain version on the card, in the shared-row and the dense
-   layout, at the allocator benchmark's shape (10⁴ links × 10³ flows) and
-   at the datacenter scenario's (640 links × 12,417 flows): max |Δ| ≤
-   1e-4·max(cap) and every masked row sums to its capacity (rtol 1e-3);
-   prints the kernel's and the plain version's times (CUDA events) and the
-   kernel's bound on this card;
+   layout, at the allocator benchmark's shape (10⁴ links × 10³ flows), at
+   the datacenter scenario's (640 links × 12,417 flows) and on 64 links
+   whose ~3,700 flows overflow the kernel's on-chip list (so the branch
+   that walks device memory runs): max |Δ| ≤ 1e-4·max(cap) and every
+   masked row sums to its capacity (rtol 1e-3); prints the kernel's time
+   (device time from a CUDA graph of 20 calls, and eager calls timed with
+   CUDA events), the plain version's (CUDA events) and the kernel's bound
+   on this card;
 4. paper grid: TT and TI on ``big_switch(8, c)`` at the paper's three
    capacities, 600 s, tcp and appaware (``solver="waterfill"``): appaware
    beats tcp in every cell, throughput is within 1% of the JAX reference's
@@ -26,15 +29,17 @@ Phases, each of which makes the script exit non-zero when it fails:
    appaware beats tcp, the two solvers agree within 2%. This appaware
    ``"waterfill"`` run is the main-path run whose kernel launches are
    reported;
-6. build of the LM serving path's kernels (flash attention, SSD chunk),
-   compiled in phase 2: build time and ptxas's report;
+6. what the LM path's kernels compiled to: ``cuobjdump -sass`` counts
+   HGMMA (wgmma) instructions per function; the bf16 flash kernels must
+   issue them and the float32 ones must not;
 7. those kernels vs their plain versions on the card, at zamba2-1.2b's
    serving shapes (flash: B 4, H = K = 32, S = T = 512, hd 64, float32 and
-   bfloat16; SSD chunk: BH 4·64, 4 chunks of 128, P 64, N 64), plus a GQA
-   shape (H 8, K 2), a ragged S (300) and mamba2-370m's N = 128: max |Δ| ≤
-   2e-5 (flash float32), 2e-2 (flash bfloat16), 1e-4 (SSD), the JAX
-   tests' own tolerances; prints each kernel's time (CUDA events), its
-   plain version's, SDPA's for flash, and the bound;
+   bfloat16; SSD chunk: BH 4·64, 4 chunks of 128, P 64, N 64), plus GQA
+   (H 8, K 2 float32; H 32, K 8 bfloat16), hd 128 bfloat16, a ragged S
+   (300, float32 and bfloat16) and mamba2-370m's N = 128: max |Δ| ≤ 2e-5
+   (flash float32), 2e-2 (flash bfloat16), 1e-4 (SSD), the JAX tests' own
+   tolerances; prints each kernel's time (as in phase 3), its plain
+   version's, SDPA's for flash (a CUDA graph too), and the bound;
 8. serving zamba2-1.2b at full width (random weights from a fixed
    ``torch.Generator`` seed, on the card, bfloat16): ``ServeEngine`` with 4
    slots serves 8 requests of 512 prompt tokens (numpy, seeded) and 32 new
@@ -111,16 +116,41 @@ def event_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one ``fn`` call: ``reps`` calls captured in a CUDA
+    graph, the graph replayed and timed with CUDA events, divided by
+    ``reps``. Unlike :func:`event_ms` it leaves out the host's cost of
+    issuing each call, which the card hides when other work is queued, as
+    on the serving path."""
+    import torch
+
+    fn()                                   # build, allocate, warm up
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return event_ms(graph.replay, reps=5, warmup=1) / reps
+
+
 def waterfill_bound_ms(mask, kind01, dense: bool) -> tuple[float, str]:
     """Least time for one waterfill call on this card: bytes (mask read and
-    output written once, the flow rows, capacity and kind read once) over
-    the memory rate against the operations the data needs (~5 flops per
-    masked downlink pair per bisection round and for the mass pass, ~10
-    per masked pair for the reductions and the emit) over the fp32 rate."""
+    output written once, the flow rows' masked entries (dense) or the flow
+    rows (shared), capacity and kind read once) over the memory rate
+    against the operations the data needs (~5 flops per masked downlink
+    pair per bisection round and for the mass pass, ~10 per masked pair
+    for the reductions and the emit) over the fp32 rate."""
     L, F = mask.shape
-    flow_elems = 3 * (L * F if dense else F)
-    n_bytes = 4 * (2 * L * F + flow_elems + 2 * L)
     nnz = float(mask.sum())
+    flow_elems = 3 * (nnz if dense else F)
+    n_bytes = 4 * (2 * L * F + flow_elems + 2 * L)
     nnz_down = float(mask[kind01 == 1].sum())
     from repro_torch.kernels.waterfill.ref import N_BISECT
     ops = 5 * (N_BISECT + 1) * nnz_down + 10 * nnz
@@ -129,10 +159,40 @@ def waterfill_bound_ms(mask, kind01, dense: bool) -> tuple[float, str]:
                                        else "operations")
 
 
+def kernel_name(mangled: str) -> str:
+    """``flash_bf16_kernel<64>`` from an Itanium-mangled kernel name: the
+    length-prefixed identifier that ends in ``_kernel``, and the integer
+    template argument after it."""
+    import re
+
+    i = 0
+    while i < len(mangled):
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        if j == i:
+            i += 1
+            continue
+        ident = mangled[j:j + int(mangled[i:j])]
+        i = j + len(ident)
+        if ident.endswith("_kernel"):
+            arg = re.match(r"ILi(\d+)E", mangled[i:])
+            return ident + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
+
+
 def print_build(label: str, info: dict) -> None:
-    usage = [ln.strip() for ln in info["ptxas"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build: {label} in {info['seconds']:.2f} s; " + " | ".join(usage))
+    """The build time and, per kernel function, ptxas's registers, shared
+    memory and spills."""
+    print(f"build: {label} in {info['seconds']:.2f} s")
+    name = spill = "?"
+    for ln in info["ptxas"].splitlines():
+        if "Compiling entry function" in ln:
+            name = kernel_name(ln.split("'")[1])
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            print(f"build:   {name}: {ln.split(':', 1)[1].strip()}; {spill}")
 
 
 def bench_problem(rng, L: int, F: int):
@@ -192,15 +252,17 @@ def phase_kernel(name, args) -> dict:
         check(err <= tol, f"{name} {layout}: max|Δ| {err} > {tol}")
         check(row_err <= 1e-3, f"{name} {layout}: row sums off cap by "
                                f"{row_err} (rtol 1e-3)")
-        ms = event_ms(lambda: fn(*flow, mask, cap, kind01,
-                                 dt=WATERFILL_DT), reps=50)
+        call = (lambda: fn(*flow, mask, cap, kind01, dt=WATERFILL_DT))
+        ms = graph_ms(call)
+        eager_ms = event_ms(call, reps=50)
         plain_ms = event_ms(lambda: waterfill_plain(
             *flow, mask, cap, kind01, WATERFILL_DT), reps=5, warmup=1)
         bound_ms, bound_by = waterfill_bound_ms(mask, kind01,
                                                 layout == "dense")
         print(f"kernel {name} [{L}x{F}] {layout}: max_abs_err {err:.3e} "
               f"(tol {tol:.3e}), row-sum rel err {row_err:.3e}, "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"kernel {ms:.4f} ms (eager calls {eager_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}), "
               f"bound/kernel {bound_ms / ms:.4f}")
         res[layout] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -264,7 +326,8 @@ def main() -> int:
     build.build_all(sources)
     print(f"build: {len(sources)} kernels in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
-    print_build("waterfill.cu", build.BUILD_INFO["waterfill"])
+    for name, src in sources.items():
+        print_build(src.name, build.BUILD_INFO[name])
     ops._lib()
 
     # ---- 3. kernel vs plain ---------------------------------------------
@@ -282,6 +345,16 @@ def main() -> int:
         "datacenter",
         kernel_inputs(sim_dc.R.cpu().numpy(), topo_dc.capacities,
                       topo_dc.link_kinds, 0, dev))
+    # rows past the kernel's on-chip list: ~3,700 of 12,417 flows on every
+    # link, so every row takes the branch that walks device memory
+    rng = np.random.default_rng(1)
+    n_l = 64
+    R_big = (rng.random((12_417, n_l)) < 0.3).astype(np.float32)
+    big = kernel_inputs(R_big, rng.uniform(1.0, 50.0, n_l).astype(np.float32),
+                        np.arange(n_l, dtype=np.int32) % 3, 1, dev)
+    check(bool(ops.streamed_rows(big[3]).all()),
+          "streamed case: every row exceeds the list budget")
+    results["streamed"] = phase_kernel("streamed", big)
 
     # ---- 4. paper grid --------------------------------------------------
     for app, mk in (("TT", trending_topics), ("TI", trucking_iot)):
@@ -350,9 +423,8 @@ def main() -> int:
         "library_ms": None,
     }]
 
-    # ---- 6. build of the LM path's kernels (compiled in phase 2) --------
-    print_build("flash_attention.cu", build.BUILD_INFO[fa_ops.NAME])
-    print_build("ssd_chunk.cu", build.BUILD_INFO[ssd_ops.NAME])
+    # ---- 6. what the LM path's kernels compiled to (built in phase 2) --
+    phase_sass(build.BUILD_DIR / f"lib{fa_ops.NAME}.so")
 
     # ---- 7. LM kernels vs plain versions --------------------------------
     flash = phase_flash(dev)
@@ -419,6 +491,35 @@ def ssd_bound_ms(BH, nc, Q, P, N, Bsz):
     return bound(n_bytes, ops, PEAK_F32_S)
 
 
+def phase_sass(lib) -> None:
+    """``cuobjdump -sass``: the bf16 flash kernels issue HGMMA (wgmma) and the
+    float32 ones none."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("sass: cuobjdump not found; HGMMA not checked")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = kernel_name(ln.split("Function :")[1].strip())
+            counts[name] = 0
+        elif name and "HGMMA" in ln:
+            counts[name] += 1
+    print("sass: HGMMA instructions per function: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(counts.items())))
+    for k, v in counts.items():
+        if k.startswith("flash_bf16_kernel"):
+            check(v > 0, f"sass: {k} issues no HGMMA")
+        if k.startswith("flash_f32_kernel"):
+            check(v == 0, f"sass: {k} issues HGMMA")
+    check(any(k.startswith("flash_bf16_kernel") for k in counts),
+          "sass: no bf16 flash kernel in the library")
+
+
 def phase_flash(dev) -> dict:
     import torch
     import torch.nn.functional as F
@@ -434,7 +535,14 @@ def phase_flash(dev) -> dict:
             ("serving bf16", (SERVE_B, SERVE_S, 32, 32, 64), torch.bfloat16,
              2e-2),
             ("GQA H8/K2", (SERVE_B, SERVE_S, 8, 2, 64), torch.float32, 2e-5),
-            ("ragged S300", (2, 300, 8, 2, 64), torch.float32, 2e-5)):
+            ("ragged S300", (2, 300, 8, 2, 64), torch.float32, 2e-5),
+            # the bf16 kernel (tensor cores, TMA) at serving width
+            ("GQA H32/K8 bf16", (SERVE_B, SERVE_S, 32, 8, 64), torch.bfloat16,
+             2e-2),
+            ("hd128 bf16", (SERVE_B, SERVE_S, 16, 16, 128), torch.bfloat16,
+             2e-2),
+            ("ragged S300 bf16", (SERVE_B, 300, 32, 32, 64), torch.bfloat16,
+             2e-2)):
         q = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
         k = torch.randn(B, S, K, hd, generator=g, device=dev).to(dtype)
         v = torch.randn(B, S, K, hd, generator=g, device=dev).to(dtype)
@@ -446,21 +554,20 @@ def phase_flash(dev) -> dict:
         check(bool(torch.isfinite(out).all()), f"flash {label}: finite")
         check(err <= tol, f"flash {label}: max|Δ| {err} > {tol}")
         worst = max(worst, err)
-        ms = event_ms(lambda: fa.flash_attention(q, k, v, causal=True),
-                      reps=20)
+        call = (lambda: fa.flash_attention(q, k, v, causal=True))
+        ms = graph_ms(call)
+        eager_ms = event_ms(call, reps=20)
         plain_ms = event_ms(lambda: attention_plain(qt, kt, vt, True),
                             reps=5, warmup=1)
         bound_ms, bound_by = flash_bound_ms(B, S, S, H, K, hd, dtype)
-        lib, lib_ms = "", None
-        if H == K:
-            lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), reps=20)
-            lib = f", SDPA {lib_ms:.4f} ms"
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=H != K))
         print(f"kernel flash_attention {label} [B{B} S{S} H{H} K{K} hd{hd} "
               f"{str(dtype)[6:]}]: max_abs_err {err:.3e} (tol {tol:g}), "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+              f"kernel {ms:.4f} ms (eager calls {eager_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), bound/kernel "
-              f"{bound_ms / ms:.4f}")
+              f"{bound_ms / ms:.4f}, kernel/SDPA {ms / lib_ms:.3f}")
         if label == "serving bf16":
             timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=lib_ms)
@@ -497,12 +604,14 @@ def phase_ssd(dev) -> dict:
               f"ssd {label}: finite")
         check(err <= 1e-4, f"ssd {label}: max|Δ| {err} > 1e-4")
         worst = max(worst, err)
-        ms = event_ms(lambda: ssd.ssd_chunk(*args), reps=20)
+        ms = graph_ms(lambda: ssd.ssd_chunk(*args))
+        eager_ms = event_ms(lambda: ssd.ssd_chunk(*args), reps=20)
         plain_ms = event_ms(lambda: ssd_chunk_plain(*args), reps=5,
                             warmup=1)
         bound_ms, bound_by = ssd_bound_ms(BH, nc, Q, P, N, Bsz)
         print(f"kernel ssd_chunk {label} [BH{BH} nc{nc} Q{Q} P{P} N{N}]: "
-              f"max_abs_err {err:.3e} (tol 1e-4), kernel {ms:.4f} ms, plain "
+              f"max_abs_err {err:.3e} (tol 1e-4), kernel {ms:.4f} ms "
+              f"(eager calls {eager_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
               f"bound/kernel {bound_ms / ms:.4f}")
         if label == "zamba2 N64":

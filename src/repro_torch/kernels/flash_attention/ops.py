@@ -7,13 +7,21 @@ Tensors on the CPU go through the plain version
 (:func:`repro_torch.kernels.flash_attention.ref.attention_plain`); CUDA
 tensors launch the kernel on the current stream, without synchronising, or
 raise. The JAX kernel's ``block_q``/``block_k`` knobs and its
-``S % block_q == 0`` requirement have no counterpart: the CUDA kernel uses
-fixed 64-row tiles and masks its own ragged edge.
+``S % block_q == 0`` requirement have no counterpart: the CUDA kernels use
+fixed 64-row tiles and mask their own ragged edge.
+
+The source holds two kernels, and :func:`kernel_for` picks one by dtype:
+bfloat16 runs on the tensor cores with its tiles brought in by TMA, float32
+on the CUDA cores (tensor-core operands would round float32 inputs). The
+bfloat16 kernel reads q, k and v through tensor maps whose plan
+(:func:`tma_plan`) the wrapper computes and checks (:func:`check_tma_operand`)
+before the library encodes it.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -24,7 +32,9 @@ NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)     # the head widths the kernel is built for
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_GRID_Y = 65535                # B·H rides on gridDim.y
+MAX_GRID_Y = 65535                # the CUDA limit on gridDim.y
+TILE_ROWS = 64                    # rows of a q or k/v tile (a TMA box)
+PLAN_LEN = 12                     # int64s of one operand's tensor-map plan
 
 # Kernel launches in this process (CUDA tensors only; the CPU path never
 # counts). Callers read and reset it to show which runs went through the
@@ -40,13 +50,68 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = load(NAME, SOURCE)
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
-                                               i, i, i, vp]
-        lib.flash_attention_launch.restype = i
+        lib.flash_attention_f32_launch.argtypes = [vp, vp, vp, vp, i, i, i,
+                                                   i, i, i, i, vp]
+        lib.flash_attention_f32_launch.restype = i
+        lib.flash_attention_bf16_launch.argtypes = [vp, vp, vp, vp, vp, i, i,
+                                                    i, i, i, i, i, vp]
+        lib.flash_attention_bf16_launch.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def kernel_for(dtype: torch.dtype) -> str:
+    """Which kernel of ``csrc/flash_attention.cu`` takes inputs of ``dtype``:
+    ``"bf16"`` (tensor cores, TMA) or ``"f32"`` (CUDA cores)."""
+    if dtype == torch.bfloat16:
+        return "bf16"
+    if dtype == torch.float32:
+        return "f32"
+    raise TypeError(f"flash_attention takes float32 or bfloat16, not {dtype}")
+
+
+class TmaPlan(NamedTuple):
+    """A 4-D tensor map over a contiguous bf16 [B, N, X, hd] tensor (N rows:
+    S or T; X heads: H or K), innermost first: (hd, X, N, B). A box is one
+    head's 64 rows of ``box[0]`` columns; hd·2 bytes per row are swizzled at
+    32, 64 or 128 bytes, and hd 128 takes two 64-wide boxes. Rows past N are
+    zero-filled by TMA and never reach into the next batch."""
+    dims: tuple[int, int, int, int]
+    strides: tuple[int, int, int]        # bytes, of dims 1..3
+    box: tuple[int, int, int, int]
+    swizzle: int                          # bytes
+    boxes: int                            # boxes per 64-row tile
+
+    def flat(self) -> list[int]:
+        return [*self.dims, *self.strides, *self.box, self.swizzle]
+
+
+def tma_plan(shape) -> TmaPlan:
+    """The tensor-map plan of a contiguous bf16 tensor of ``shape``
+    [B, N, X, hd]."""
+    B, N, X, hd = (int(d) for d in shape)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    swizzle = min(2 * hd, 128)
+    cols = swizzle // 2
+    row = 2 * hd
+    return TmaPlan(dims=(hd, X, N, B), strides=(row, X * row, N * X * row),
+                   box=(cols, 1, TILE_ROWS, 1), swizzle=swizzle,
+                   boxes=hd // cols)
+
+
+def check_tma_operand(name: str, ptr: int, shape) -> None:
+    """TMA reads from a 16-byte aligned base, with every stride a multiple of
+    16 bytes: raise on a tensor (a view, say) that breaks that."""
+    if ptr % 16:
+        raise ValueError(f"{name}: base address {ptr:#x} is not 16-byte "
+                         "aligned, which the bf16 kernel's TMA needs")
+    row = 2 * int(shape[2]) * int(shape[3])
+    if row % 16:
+        raise ValueError(f"{name}: row stride {row} bytes is not a multiple "
+                         "of 16, which the bf16 kernel's TMA needs")
 
 
 def _check(q, k, v) -> None:
@@ -92,18 +157,33 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
                          f"{q.device}")
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
-    if B * H > MAX_GRID_Y:
+    kernel = kernel_for(q.dtype)
+    # the f32 kernel puts B·H on gridDim.y, the bf16 kernel the query tiles
+    if kernel == "f32" and B * H > MAX_GRID_Y:
         raise ValueError(f"B·H = {B * H} exceeds {MAX_GRID_Y}")
+    if kernel == "bf16" and -(-S // TILE_ROWS) > MAX_GRID_Y:
+        raise ValueError(f"{-(-S // TILE_ROWS)} query tiles exceed "
+                         f"{MAX_GRID_Y}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if kernel == "bf16":
+        plans = []
+        for nm, t in (("q", q), ("k", k), ("v", v)):
+            check_tma_operand(nm, t.data_ptr(), t.shape)
+            plans += tma_plan(t.shape).flat()
+        plans = (ctypes.c_longlong * (3 * PLAN_LEN))(*plans)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, T, H, K, hd, int(q.dtype == torch.bfloat16), int(causal),
-            stream)
+        if kernel == "bf16":
+            err = lib.flash_attention_bf16_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                plans, B, S, T, H, K, hd, int(causal), stream)
+        else:
+            err = lib.flash_attention_f32_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, T, H, K, hd, int(causal), stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())

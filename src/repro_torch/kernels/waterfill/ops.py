@@ -14,6 +14,12 @@ launch the kernel on the current stream, without synchronising, or raise.
 The JAX kernel's ``block_links``/``block_flows`` tiling knobs and its
 padding to 128 lanes are TPU layout concerns with no counterpart here: the
 CUDA kernel runs one block per link and masks its own ragged flow edge.
+
+The kernel lists each link's masked flows in shared memory, at most
+:data:`LIST_BUDGET` of them; a row with more walks its row in device memory
+on every pass (a branch the data chooses inside the kernel, so the
+allocator never waits on the host). :func:`list_smem_bytes` and
+:func:`streamed_rows` state that plan in plain Python.
 """
 from __future__ import annotations
 
@@ -32,6 +38,13 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "waterfill.cu"
 # kernel.
 LAUNCHES = 0
 
+# Masked flows a link's on-chip list holds (16 bytes each: index, mask
+# value and two floats of flow state). A datacenter downlink carries ~48,
+# an allocator-benchmark link ~0.4; 2,048 (32 KB) leaves room for seven
+# blocks per SM.
+LIST_BUDGET = 2048
+LIST_ENTRY_BYTES = 16
+
 _LIB: ctypes.CDLL | None = None
 
 
@@ -43,12 +56,30 @@ def _lib() -> ctypes.CDLL:
         vp = ctypes.c_void_p
         lib.waterfill_launch.argtypes = [
             vp, vp, vp, ctypes.c_longlong, vp, vp, vp, vp,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, vp]
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, vp]
         lib.waterfill_launch.restype = ctypes.c_int
+        lib.waterfill_list_entry_bytes.restype = ctypes.c_int
+        if lib.waterfill_list_entry_bytes() != LIST_ENTRY_BYTES:
+            raise RuntimeError("waterfill.cu's list entry is "
+                               f"{lib.waterfill_list_entry_bytes()} bytes, "
+                               f"ops.py plans {LIST_ENTRY_BYTES}")
         lib.waterfill_error_string.argtypes = [ctypes.c_int]
         lib.waterfill_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def list_smem_bytes(budget: int = LIST_BUDGET) -> int:
+    """Dynamic shared memory of one block: the list of ``budget`` flows."""
+    if budget < 0:
+        raise ValueError(f"list budget must be >= 0, got {budget}")
+    return budget * LIST_ENTRY_BYTES
+
+
+def streamed_rows(mask: torch.Tensor, budget: int = LIST_BUDGET):
+    """[L] bool: the rows whose masked flows overflow the list, and which the
+    kernel therefore solves from device memory."""
+    return (mask != 0).sum(1) > budget
 
 
 def _check(weights, backlog, rho, mask, capacity, kind, flow_shape):
@@ -94,7 +125,8 @@ def _solve(weights, backlog, rho, mask, capacity, kind, dt, flow_stride):
         err = lib.waterfill_launch(
             weights.data_ptr(), backlog.data_ptr(), rho.data_ptr(),
             flow_stride, mask.data_ptr(), capacity.data_ptr(),
-            kind.data_ptr(), out.data_ptr(), L, F, float(dt), stream)
+            kind.data_ptr(), out.data_ptr(), L, F, float(dt), LIST_BUDGET,
+            stream)
     if err != 0:
         raise RuntimeError("waterfill kernel launch failed: "
                            + lib.waterfill_error_string(err).decode())

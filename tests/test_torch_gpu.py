@@ -52,6 +52,47 @@ def test_cuda_kernel_matches_plain(L, F, p):
     assert float((dense - plain).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("L,F,p,streamed", [
+    (12, 12_417, 0.004, False),   # ~50 flows a row: one warp solves each
+    (9, 4_001, 0.1, False),       # ~400: the block solves the list
+    (6, 5_001, 0.6, True),        # ~3,000 > LIST_BUDGET: device memory
+])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_waterfill_list_and_streamed_rows(L, F, p, streamed, offset):
+    """Both branches of the kernel against its plain version: odd F, a mask
+    whose rows start off the 16-byte grid (``offset`` floats into its
+    storage), rows with no masked flow, and all three link kinds (0 up,
+    1 down, 2 internal, which the kernel treats as an uplink). Max |Δ| ≤
+    1e-4·max(cap); every masked row sums to its capacity (rtol 1e-3)."""
+    dev = _cuda()
+    rng = np.random.default_rng(F + offset)
+    w, bl, rho = (torch.tensor(rng.uniform(lo, hi, F), dtype=torch.float32,
+                               device=dev)
+                  for lo, hi in ((0, 20), (0, 30), (0.1, 10)))
+    m = rng.random((L, F)) < p
+    m[1] = False                                     # a row with no flow
+    store = torch.zeros(L * F + offset, dtype=torch.float32, device=dev)
+    mask = store[offset:].view(L, F)
+    mask.copy_(torch.tensor(m, dtype=torch.float32))
+    assert mask.is_contiguous() and mask.data_ptr() % 16 == 4 * offset
+    cap = torch.tensor(rng.uniform(1, 50, L), dtype=torch.float32, device=dev)
+    kind = torch.tensor(np.arange(L) % 3, dtype=torch.int32, device=dev)
+    has = torch.tensor(m.any(1), device=dev)
+    assert bool(ops.streamed_rows(mask)[has].all()) == streamed
+    assert not bool(ops.streamed_rows(mask)[~has].any())
+    tol = 1e-4 * float(cap.max())
+    for out in (ops.waterfill_flows(w, bl, rho, mask, cap, kind, dt=5.0),
+                ops.waterfill(*(v.expand(L, F).contiguous()
+                                for v in (w, bl, rho)),
+                              mask, cap, kind, dt=5.0)):
+        torch.cuda.synchronize()
+        plain = waterfill_plain(w, bl, rho, mask, cap, kind, 5.0)
+        assert float((out - plain).abs().max()) <= tol
+        rows = out.sum(1)
+        assert float(((rows - cap).abs() / cap)[has].max()) <= 1e-3
+        assert float(out[~has].abs().max()) == 0.0
+
+
 def test_wrong_device_or_dtype_raises_on_card():
     dev = _cuda()
     w = torch.ones(4, device=dev)
@@ -120,6 +161,54 @@ def test_flash_attention_kernel_matches_plain(B, S, T, H, K, hd, causal,
                             v.transpose(1, 2), causal).transpose(1, 2)
     err = float((out.float() - plain.float()).abs().max())
     assert err <= tol, err
+
+
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,amp", [
+    (3, 100, 100, 4, 2, 64, False, 1.0),   # ragged tile, last batch's end
+    (3, 100, 100, 4, 4, 128, True, 1.0),
+    (2, 64, 200, 4, 2, 64, False, 1.0),    # T > S
+    (2, 70, 200, 8, 2, 128, True, 1.0),
+    (1, 130, 130, 4, 1, 16, True, 1.0),
+    (2, 128, 160, 4, 2, 64, True, 12.0),   # scores in the thousands
+    (2, 96, 96, 2, 2, 32, False, 12.0),
+])
+def test_flash_bf16_kernel_edges(B, S, T, H, K, hd, causal, amp):
+    """The bf16 kernel (tensor cores, TMA) where its tiles meet the edges:
+    a ragged last tile that TMA must zero-fill rather than read from the
+    next batch, more keys than queries, and scores large enough that an
+    unshifted exp would overflow; against the plain version at 2e-2."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(B * S + T + hd)
+    q = (amp * torch.randn(B, S, H, hd, generator=g, device=dev)).bfloat16()
+    k = (amp * torch.randn(B, T, K, hd, generator=g, device=dev)).bfloat16()
+    v = torch.randn(B, T, K, hd, generator=g, device=dev).bfloat16()
+    before = fa.LAUNCHES
+    out = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    plain = attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal).transpose(1, 2)
+    assert bool(torch.isfinite(out).all())
+    err = float((out.float() - plain.float()).abs().max())
+    assert err <= 2e-2, err
+
+
+def test_flash_bf16_rejects_misaligned_operand_on_card():
+    """TMA needs a 16-byte aligned base: a contiguous view two bytes into
+    its storage raises before any launch."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dev = _cuda()
+    q = torch.randn(1, 8, 2, 16, device=dev).bfloat16()
+    store = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = store[1:].view(q.shape)
+    before = fa.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(shifted, q, q)
+    assert fa.LAUNCHES == before
 
 
 @pytest.mark.parametrize("Bsz,H,nc,Q,P,N", [(2, 3, 2, 128, 64, 64),
