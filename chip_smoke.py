@@ -30,16 +30,18 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``"waterfill"`` run is the main-path run whose kernel launches are
    reported;
 6. what the LM path's kernels compiled to: ``cuobjdump -sass`` counts
-   HGMMA (wgmma) instructions per function; the bf16 flash kernels must
-   issue them and the float32 ones must not;
+   HGMMA (wgmma) instructions per function; every flash kernel (bf16 and
+   float32, split-TF32) and the SSD chunk kernel must issue them;
 7. those kernels vs their plain versions on the card, at zamba2-1.2b's
    serving shapes (flash: B 4, H = K = 32, S = T = 512, hd 64, float32 and
    bfloat16; SSD chunk: BH 4·64, 4 chunks of 128, P 64, N 64), plus GQA
-   (H 8, K 2 float32; H 32, K 8 bfloat16), hd 128 bfloat16, a ragged S
+   (H 8, K 2 float32; H 32, K 8 bfloat16), hd 128 (both), a ragged S
    (300, float32 and bfloat16) and mamba2-370m's N = 128: max |Δ| ≤ 2e-5
    (flash float32), 2e-2 (flash bfloat16), 1e-4 (SSD), the JAX tests' own
    tolerances; prints each kernel's time (as in phase 3), its plain
-   version's, SDPA's for flash (a CUDA graph too), and the bound;
+   version's, SDPA's for flash (a CUDA graph too), and the bound (float32
+   work at the split-TF32 rate, three tf32 products per float32 product;
+   the CUDA-core figure of earlier runs beside it);
 8. serving zamba2-1.2b at full width (random weights from a fixed
    ``torch.Generator`` seed, on the card, bfloat16): ``ServeEngine`` with 4
    slots serves 8 requests of 512 prompt tokens (numpy, seeded) and 32 new
@@ -73,6 +75,10 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_BF16_S = 989e12      # dense, on the tensor cores
+PEAK_TF32_S = 495e12      # dense, on the tensor cores
+# float32-accurate products on the tensor cores take three tf32 products
+# (split-TF32: lo·hi + hi·lo + hi·hi)
+SPLIT_TF32 = 3
 
 # JAX reference (repro.streams.simulate, 600 s, dt 0.5, big_switch(8, c)):
 # throughput in tuples/s, tcp -> appaware; the same with the Pallas and
@@ -424,7 +430,8 @@ def main() -> int:
     }]
 
     # ---- 6. what the LM path's kernels compiled to (built in phase 2) --
-    phase_sass(build.BUILD_DIR / f"lib{fa_ops.NAME}.so")
+    phase_sass([build.BUILD_DIR / f"lib{n}.so"
+                for n in (fa_ops.NAME, ssd_ops.NAME)])
 
     # ---- 7. LM kernels vs plain versions --------------------------------
     flash = phase_flash(dev)
@@ -470,54 +477,68 @@ def bound(n_bytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 def flash_bound_ms(B, S, T, H, K, hd, dtype, causal=True):
     """q, k, v read and o written once; 4·hd flops per (query, key) pair
-    that the mask keeps (two products), at the inputs' rate."""
+    that the mask keeps (two products): bf16 at the bf16 rate, float32 as
+    split-TF32 (three tf32 products each). Returns (ms, what binds, the
+    float32 bound at the CUDA-core rate that earlier runs reported)."""
     import torch
 
     size = 2 if dtype == torch.bfloat16 else 4
     n_bytes = size * (2 * B * S * H * hd + 2 * B * T * K * hd)
     pairs = (sum(min(i + 1, T) for i in range(S)) if causal else S * T)
-    peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_F32_S
-    return bound(n_bytes, 4 * hd * B * H * pairs, peak)
+    ops = 4 * hd * B * H * pairs
+    if dtype == torch.bfloat16:
+        return (*bound(n_bytes, ops, PEAK_BF16_S), None)
+    return (*bound(n_bytes, SPLIT_TF32 * ops, PEAK_TF32_S),
+            bound(n_bytes, ops, PEAK_F32_S)[0])
 
 
 def ssd_bound_ms(BH, nc, Q, P, N, Bsz):
     """x, dt, B, C, A read and y, states, cum written once (float32); the
-    three products on the causal triangle (C·Bᵀ and M·x over Q(Q+1)/2
-    pairs, the state over all Q rows), at the float32 rate."""
+    three products on the causal triangle (C·Bᵀ over Q(Q+1)/2 pairs once per
+    batch row and chunk, since its heads share B and C; M·x over the same
+    pairs and the state over all Q rows per head), as split-TF32. Returns
+    (ms, what binds, the bound at the CUDA-core float32 rate with C·Bᵀ per
+    head, as earlier runs reported it)."""
     n_bytes = 4 * (2 * BH * nc * Q * P + 2 * BH * nc * Q
                    + 2 * Bsz * nc * Q * N + BH + BH * nc * P * N)
     tri = Q * (Q + 1) // 2
-    ops = BH * nc * (2 * tri * N + 2 * tri * P + 2 * Q * P * N)
-    return bound(n_bytes, ops, PEAK_F32_S)
+    ops = Bsz * nc * 2 * tri * N + BH * nc * (2 * tri * P + 2 * Q * P * N)
+    ops_per_head = BH * nc * (2 * tri * N + 2 * tri * P + 2 * Q * P * N)
+    return (*bound(n_bytes, SPLIT_TF32 * ops, PEAK_TF32_S),
+            bound(n_bytes, ops_per_head, PEAK_F32_S)[0])
 
 
-def phase_sass(lib) -> None:
-    """``cuobjdump -sass``: the bf16 flash kernels issue HGMMA (wgmma) and the
-    float32 ones none."""
+# the LM path's kernels, each of which must issue HGMMA (phase 6)
+TENSOR_CORE_KERNELS = ("flash_bf16_kernel", "flash_f32_kernel",
+                       "ssd_chunk_kernel")
+
+
+def phase_sass(libs) -> None:
+    """``cuobjdump -sass``: every flash kernel (bf16, and float32 as
+    split-TF32) and the SSD chunk kernel issue HGMMA (wgmma)."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         print("sass: cuobjdump not found; HGMMA not checked")
         return
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
     counts, name = {}, None
-    for ln in sass.splitlines():
-        if "Function :" in ln:
-            name = kernel_name(ln.split("Function :")[1].strip())
-            counts[name] = 0
-        elif name and "HGMMA" in ln:
-            counts[name] += 1
+    for lib in libs:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                name = kernel_name(ln.split("Function :")[1].strip())
+                counts[name] = 0
+            elif name and "HGMMA" in ln:
+                counts[name] += 1
     print("sass: HGMMA instructions per function: " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
-    for k, v in counts.items():
-        if k.startswith("flash_bf16_kernel"):
-            check(v > 0, f"sass: {k} issues no HGMMA")
-        if k.startswith("flash_f32_kernel"):
-            check(v == 0, f"sass: {k} issues HGMMA")
-    check(any(k.startswith("flash_bf16_kernel") for k in counts),
-          "sass: no bf16 flash kernel in the library")
+    for prefix in TENSOR_CORE_KERNELS:
+        found = [k for k in counts if k.startswith(prefix)]
+        check(bool(found), f"sass: no {prefix} in the libraries")
+        for k in found:
+            check(counts[k] > 0, f"sass: {k} issues no HGMMA")
 
 
 def phase_flash(dev) -> dict:
@@ -536,6 +557,8 @@ def phase_flash(dev) -> dict:
              2e-2),
             ("GQA H8/K2", (SERVE_B, SERVE_S, 8, 2, 64), torch.float32, 2e-5),
             ("ragged S300", (2, 300, 8, 2, 64), torch.float32, 2e-5),
+            ("hd128 f32", (SERVE_B, SERVE_S, 16, 16, 128), torch.float32,
+             2e-5),
             # the bf16 kernel (tensor cores, TMA) at serving width
             ("GQA H32/K8 bf16", (SERVE_B, SERVE_S, 32, 8, 64), torch.bfloat16,
              2e-2),
@@ -559,7 +582,8 @@ def phase_flash(dev) -> dict:
         eager_ms = event_ms(call, reps=20)
         plain_ms = event_ms(lambda: attention_plain(qt, kt, vt, True),
                             reps=5, warmup=1)
-        bound_ms, bound_by = flash_bound_ms(B, S, S, H, K, hd, dtype)
+        bound_ms, bound_by, cuda_core_ms = flash_bound_ms(B, S, S, H, K, hd,
+                                                          dtype)
         lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=H != K))
         print(f"kernel flash_attention {label} [B{B} S{S} H{H} K{K} hd{hd} "
@@ -567,7 +591,10 @@ def phase_flash(dev) -> dict:
               f"kernel {ms:.4f} ms (eager calls {eager_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), bound/kernel "
-              f"{bound_ms / ms:.4f}, kernel/SDPA {ms / lib_ms:.3f}")
+              f"{bound_ms / ms:.4f}, kernel/SDPA {ms / lib_ms:.3f}"
+              + ("" if cuda_core_ms is None else
+                 f"; bound at the CUDA-core float32 rate {cuda_core_ms:.4f}"
+                 f" ms, bound/kernel {cuda_core_ms / ms:.4f}"))
         if label == "serving bf16":
             timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=lib_ms)
@@ -608,12 +635,15 @@ def phase_ssd(dev) -> dict:
         eager_ms = event_ms(lambda: ssd.ssd_chunk(*args), reps=20)
         plain_ms = event_ms(lambda: ssd_chunk_plain(*args), reps=5,
                             warmup=1)
-        bound_ms, bound_by = ssd_bound_ms(BH, nc, Q, P, N, Bsz)
+        bound_ms, bound_by, cuda_core_ms = ssd_bound_ms(BH, nc, Q, P, N,
+                                                        Bsz)
         print(f"kernel ssd_chunk {label} [BH{BH} nc{nc} Q{Q} P{P} N{N}]: "
               f"max_abs_err {err:.3e} (tol 1e-4), kernel {ms:.4f} ms "
               f"(eager calls {eager_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"bound/kernel {bound_ms / ms:.4f}")
+              f"bound/kernel {bound_ms / ms:.4f}; bound at the CUDA-core "
+              f"float32 rate {cuda_core_ms:.4f} ms, bound/kernel "
+              f"{cuda_core_ms / ms:.4f}")
         if label == "zamba2 N64":
             timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by)

@@ -4,8 +4,9 @@ Each kernel source under ``repro_torch/kernels/<name>/csrc/`` has a plain
 ``extern "C"`` launcher, so it compiles in seconds with ``nvcc`` alone (no
 PyTorch headers) into ``build/kernels/lib<name>.so`` at the repository
 root, a directory git ignores. The build runs at first use in a process
-and again whenever the source is newer than the library; the loaded
-library is cached for the life of the process; :func:`build_all` starts one
+and again whenever the source, or a shared header ``kernels/*.cuh`` it may
+include, is newer than the library; the loaded library is cached for the
+life of the process; :func:`build_all` starts one
 ``nvcc`` per stale source at once. ``-Xptxas -v`` reports each
 kernel's registers and shared memory; the report is kept beside the
 library (``<name>.ptxas.txt``) and in :data:`BUILD_INFO`.
@@ -43,14 +44,17 @@ def _nvcc() -> str:
 
 def build_all(sources: dict[str, Path]) -> dict[str, Path]:
     """Compile each ``name -> source`` into ``BUILD_DIR/lib<name>.so`` unless
-    the library is newer than the source: one nvcc process per stale source,
-    all started together. Raises with nvcc's output if any build fails."""
+    the library is newer than the source and the shared headers: one nvcc
+    process per stale source, all started together. Raises with nvcc's
+    output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    headers = tuple(Path(__file__).resolve().parent.glob("*.cuh"))
     libs, running = {}, {}
     for name, source in sources.items():
         lib = libs[name] = BUILD_DIR / f"lib{name}.so"
         report = BUILD_DIR / f"{name}.ptxas.txt"
-        if lib.exists() and lib.stat().st_mtime >= source.stat().st_mtime:
+        newest = max(p.stat().st_mtime for p in (source, *headers))
+        if lib.exists() and lib.stat().st_mtime >= newest:
             BUILD_INFO.setdefault(name, {
                 "seconds": 0.0,
                 "ptxas": report.read_text() if report.exists() else ""})

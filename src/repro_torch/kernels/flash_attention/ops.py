@@ -11,9 +11,10 @@ raise. The JAX kernel's ``block_q``/``block_k`` knobs and its
 fixed 64-row tiles and mask their own ragged edge.
 
 The source holds two kernels, and :func:`kernel_for` picks one by dtype:
-bfloat16 runs on the tensor cores with its tiles brought in by TMA, float32
-on the CUDA cores (tensor-core operands would round float32 inputs). The
-bfloat16 kernel reads q, k and v through tensor maps whose plan
+both run on the tensor cores with their tiles brought in by TMA, bfloat16
+as bf16 products, float32 as split-TF32 products (three tf32 products per
+float32 product, near float32; one tf32 product would round float32 inputs
+past the tolerance). Both read q, k and v through tensor maps whose plan
 (:func:`tma_plan`) the wrapper computes and checks (:func:`check_tma_operand`)
 before the library encodes it.
 """
@@ -50,8 +51,8 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = load(NAME, SOURCE)
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_f32_launch.argtypes = [vp, vp, vp, vp, i, i, i,
-                                                   i, i, i, i, vp]
+        lib.flash_attention_f32_launch.argtypes = [vp, vp, vp, vp, vp, i, i,
+                                                   i, i, i, i, i, vp]
         lib.flash_attention_f32_launch.restype = i
         lib.flash_attention_bf16_launch.argtypes = [vp, vp, vp, vp, vp, i, i,
                                                     i, i, i, i, i, vp]
@@ -64,7 +65,8 @@ def _lib() -> ctypes.CDLL:
 
 def kernel_for(dtype: torch.dtype) -> str:
     """Which kernel of ``csrc/flash_attention.cu`` takes inputs of ``dtype``:
-    ``"bf16"`` (tensor cores, TMA) or ``"f32"`` (CUDA cores)."""
+    ``"bf16"`` (bf16 products) or ``"f32"`` (split-TF32 products), both on
+    the tensor cores with TMA."""
     if dtype == torch.bfloat16:
         return "bf16"
     if dtype == torch.float32:
@@ -73,11 +75,12 @@ def kernel_for(dtype: torch.dtype) -> str:
 
 
 class TmaPlan(NamedTuple):
-    """A 4-D tensor map over a contiguous bf16 [B, N, X, hd] tensor (N rows:
-    S or T; X heads: H or K), innermost first: (hd, X, N, B). A box is one
-    head's 64 rows of ``box[0]`` columns; hd·2 bytes per row are swizzled at
-    32, 64 or 128 bytes, and hd 128 takes two 64-wide boxes. Rows past N are
-    zero-filled by TMA and never reach into the next batch."""
+    """A 4-D tensor map over a contiguous [B, N, X, hd] tensor (N rows: S or
+    T; X heads: H or K), innermost first: (hd, X, N, B). A box is one head's
+    64 rows of ``box[0]`` columns; a row of hd elements is swizzled at its
+    own width up to 128 bytes, and wider rows take several 128-byte boxes
+    (bf16: hd 128 in two; float32: hd 64 in two, hd 128 in four). Rows past
+    N are zero-filled by TMA and never reach into the next batch."""
     dims: tuple[int, int, int, int]
     strides: tuple[int, int, int]        # bytes, of dims 1..3
     box: tuple[int, int, int, int]
@@ -88,30 +91,37 @@ class TmaPlan(NamedTuple):
         return [*self.dims, *self.strides, *self.box, self.swizzle]
 
 
-def tma_plan(shape) -> TmaPlan:
-    """The tensor-map plan of a contiguous bf16 tensor of ``shape``
-    [B, N, X, hd]."""
+def _elem_bytes(dtype: torch.dtype) -> int:
+    kernel_for(dtype)
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def tma_plan(shape, dtype: torch.dtype = torch.bfloat16) -> TmaPlan:
+    """The tensor-map plan of a contiguous tensor of ``shape`` [B, N, X, hd]
+    and ``dtype`` (bfloat16 or float32)."""
+    size = _elem_bytes(dtype)
     B, N, X, hd = (int(d) for d in shape)
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
-    swizzle = min(2 * hd, 128)
-    cols = swizzle // 2
-    row = 2 * hd
+    swizzle = min(size * hd, 128)
+    cols = swizzle // size
+    row = size * hd
     return TmaPlan(dims=(hd, X, N, B), strides=(row, X * row, N * X * row),
                    box=(cols, 1, TILE_ROWS, 1), swizzle=swizzle,
                    boxes=hd // cols)
 
 
-def check_tma_operand(name: str, ptr: int, shape) -> None:
+def check_tma_operand(name: str, ptr: int, shape,
+                      dtype: torch.dtype = torch.bfloat16) -> None:
     """TMA reads from a 16-byte aligned base, with every stride a multiple of
     16 bytes: raise on a tensor (a view, say) that breaks that."""
     if ptr % 16:
         raise ValueError(f"{name}: base address {ptr:#x} is not 16-byte "
-                         "aligned, which the bf16 kernel's TMA needs")
-    row = 2 * int(shape[2]) * int(shape[3])
+                         "aligned, which the kernels' TMA needs")
+    row = _elem_bytes(dtype) * int(shape[2]) * int(shape[3])
     if row % 16:
         raise ValueError(f"{name}: row stride {row} bytes is not a multiple "
-                         "of 16, which the bf16 kernel's TMA needs")
+                         "of 16, which the kernels' TMA needs")
 
 
 def _check(q, k, v) -> None:
@@ -157,33 +167,25 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
                          f"{q.device}")
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
-    kernel = kernel_for(q.dtype)
-    # the f32 kernel puts B·H on gridDim.y, the bf16 kernel the query tiles
-    if kernel == "f32" and B * H > MAX_GRID_Y:
-        raise ValueError(f"B·H = {B * H} exceeds {MAX_GRID_Y}")
-    if kernel == "bf16" and -(-S // TILE_ROWS) > MAX_GRID_Y:
+    launch = f"flash_attention_{kernel_for(q.dtype)}_launch"
+    # gridDim.y counts the query tiles
+    if -(-S // TILE_ROWS) > MAX_GRID_Y:
         raise ValueError(f"{-(-S // TILE_ROWS)} query tiles exceed "
                          f"{MAX_GRID_Y}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    if kernel == "bf16":
-        plans = []
-        for nm, t in (("q", q), ("k", k), ("v", v)):
-            check_tma_operand(nm, t.data_ptr(), t.shape)
-            plans += tma_plan(t.shape).flat()
-        plans = (ctypes.c_longlong * (3 * PLAN_LEN))(*plans)
+    plans = []
+    for nm, t in (("q", q), ("k", k), ("v", v)):
+        check_tma_operand(nm, t.data_ptr(), t.shape, t.dtype)
+        plans += tma_plan(t.shape, t.dtype).flat()
+    plans = (ctypes.c_longlong * (3 * PLAN_LEN))(*plans)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if kernel == "bf16":
-            err = lib.flash_attention_bf16_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                plans, B, S, T, H, K, hd, int(causal), stream)
-        else:
-            err = lib.flash_attention_f32_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, T, H, K, hd, int(causal), stream)
+        err = getattr(lib, launch)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), plans,
+            B, S, T, H, K, hd, int(causal), stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())

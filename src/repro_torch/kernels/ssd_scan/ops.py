@@ -5,12 +5,14 @@ package's ``kernels/ssd_scan/ops.py::ssd_scan`` leaves them to XLA.
 :func:`ssd_chunk` is the kernel's wrapper: CPU tensors go through the
 plain version (:func:`repro_torch.kernels.ssd_scan.ref.ssd_chunk_plain`);
 CUDA tensors launch the kernel on the current stream, without
-synchronising, or raise.
+synchronising, or raise. The kernel takes one (batch, chunk) and a group of
+heads per block; :func:`ssd_plan` states that launch plan in plain Python.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -19,8 +21,10 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunk_plain
 
 NAME = "ssd_chunk"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_chunk.cu"
-# the kernel's register tiles: chunk length, head dim and state width
+# the kernel's tiles: chunk length, head dim and state width
 MAX_Q, MAX_P, MAX_N = 128, 64, 128
+SMEM_LIMIT = 232_448      # shared memory one block may ask for on an H100
+H100_SMS = 132
 
 # Kernel launches in this process (CUDA tensors only; the CPU path never
 # counts). Callers read and reset it to show which runs went through the
@@ -37,12 +41,60 @@ def _lib() -> ctypes.CDLL:
         lib = load(NAME, SOURCE)
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.ssd_chunk_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                         i, i, i, i, i, i, vp]
+                                         i, i, i, i, i, i, i, vp]
         lib.ssd_chunk_launch.restype = i
+        lib.ssd_chunk_smem_bytes.argtypes = [i]
+        lib.ssd_chunk_smem_bytes.restype = i
         lib.ssd_chunk_error_string.argtypes = [i]
         lib.ssd_chunk_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _check_dims(Q: int, P: int, N: int) -> None:
+    if not (1 <= Q <= MAX_Q and 1 <= P <= MAX_P and 1 <= N <= MAX_N):
+        raise ValueError(f"chunk {Q}, head dim {P}, state {N} exceed the "
+                         f"kernel's {MAX_Q}, {MAX_P}, {MAX_N}")
+
+
+class SsdPlan(NamedTuple):
+    """How the kernel is launched: ``group`` heads per block (C·Bᵀ is formed
+    once per block and shared by them), ``blocks`` blocks of 384 threads,
+    ``smem_bytes`` of dynamic shared memory each."""
+    group: int
+    blocks: int
+    smem_bytes: int
+
+
+def smem_bytes(N: int) -> int:
+    """The kernel's shared memory at state width N: xᵀ as tf32 hi and lo
+    [64][128] each, the next head's x [128][64], C·Bᵀ (its causal 64 × 64
+    and 64 × 128 blocks, 48 KB), B raw [128][N padded to 64, + 4], cum, dt
+    and the state weights of two heads [2][128] each, and 1 KB to align the
+    swizzled tiles (``csrc/ssd_chunk.cu::smem_bytes``)."""
+    n_pad = -(-N // 64) * 64
+    return 1024 + 4 * (3 * MAX_P * MAX_Q + 64 * (64 + 128)
+                       + MAX_Q * (n_pad + 4) + 6 * MAX_Q)
+
+
+def ssd_plan(Bsz: int, H: int, nc: int, Q: int, P: int, N: int,
+             sms: int = H100_SMS) -> SsdPlan:
+    """The launch plan for Bsz·H heads, nc chunks of Q rows, head dim P and
+    state width N on a card of ``sms`` SMs. One block runs per SM (182 or
+    214 KB of shared memory), so the heads of each (batch, chunk) are cut
+    into as many groups as fill about one wave of blocks, and no more:
+    every extra group forms C·Bᵀ once more. Raises on shapes the kernel is
+    not built for."""
+    _check_dims(Q, P, N)
+    if min(Bsz, H, nc, sms) < 1:
+        raise ValueError(f"Bsz {Bsz}, H {H}, nc {nc} and sms {sms} must be "
+                         ">= 1")
+    units = Bsz * nc
+    groups = min(H, max(1, sms // units))
+    group = -(-H // groups)
+    n_groups = -(-H // group)
+    return SsdPlan(group=group, blocks=n_groups * units,
+                   smem_bytes=smem_bytes(N))
 
 
 def _check(x, dt, B, C, A) -> None:
@@ -69,10 +121,7 @@ def _check(x, dt, B, C, A) -> None:
                          f"{tuple(dt.shape)}")
     if tuple(A.shape) != (BH, 1):
         raise ValueError(f"A must be ({BH}, 1), got {tuple(A.shape)}")
-    N = B.shape[3]
-    if not (1 <= Q <= MAX_Q and 1 <= P <= MAX_P and 1 <= N <= MAX_N):
-        raise ValueError(f"chunk {Q}, head dim {P}, state {N} exceed the "
-                         f"kernel's {MAX_Q}, {MAX_P}, {MAX_N}")
+    _check_dims(Q, P, B.shape[3])
 
 
 def ssd_chunk(x, dt, B, C, A):
@@ -93,13 +142,16 @@ def ssd_chunk(x, dt, B, C, A):
     cum = torch.empty_like(dt)
     if x.numel() == 0:
         return y, st, cum
+    H = BH // Bsz
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = ssd_plan(Bsz, H, nc, Q, P, N, sms=sms)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_chunk_launch(
             x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
             A.data_ptr(), y.data_ptr(), st.data_ptr(), cum.data_ptr(),
-            BH, nc, Q, P, N, BH // Bsz, stream)
+            Bsz, H, nc, Q, P, N, plan.group, stream)
     if err != 0:
         raise RuntimeError("ssd_chunk kernel launch failed: "
                            + lib.ssd_chunk_error_string(err).decode())

@@ -214,11 +214,18 @@ def test_flash_bf16_rejects_misaligned_operand_on_card():
 @pytest.mark.parametrize("Bsz,H,nc,Q,P,N", [(2, 3, 2, 128, 64, 64),
                                              (1, 4, 3, 128, 64, 128),
                                              (2, 2, 4, 32, 16, 8),
-                                             (1, 2, 1, 12, 64, 16)])
+                                             (1, 2, 1, 12, 64, 16),
+                                             (1, 3, 2, 100, 64, 64),
+                                             (2, 2, 1, 100, 64, 128),
+                                             (1, 2, 3, 1, 64, 64),
+                                             (1, 3, 1, 1, 64, 128),
+                                             (1, 2, 1, 64, 50, 72)])
 def test_ssd_chunk_kernel_matches_plain(Bsz, H, nc, Q, P, N):
     """The CUDA chunk kernel against its plain version at 1e-4 (the JAX
     tests' tolerance for the chunked scan), and the whole ssd_scan on the
-    card against the sequential oracle."""
+    card against the sequential oracle. Q 100 and 1 are the chunks of
+    prompts shorter than 128 tokens (rows past Q must not move cum_end or
+    the state); P 50 and N 72 leave ragged edges in the kernel's tiles."""
     from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_plain, ssd_ref_plain
 
@@ -250,6 +257,69 @@ def test_ssd_chunk_kernel_matches_plain(Bsz, H, nc, Q, P, N):
     yr, hr = ssd_ref_plain(xs, dts, As, Bs, Cs)
     assert float((y - yr).abs().max()) <= 1e-4
     assert float((h - hr).abs().max()) <= 1e-4
+
+
+def test_ssd_chunk_head_groups_on_card():
+    """Heads cut into groups that do not divide H (the last block takes
+    fewer heads), at the serving chunk; the launch plan's shared memory is
+    the kernel's own."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_plain
+
+    dev = _cuda()
+    Bsz, H, nc, Q, P, N = 4, 10, 8, 128, 64, 64
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = ssd.ssd_plan(Bsz, H, nc, Q, P, N, sms=sms)
+    assert plan.group > 1 and H % plan.group, plan
+    lib = ssd._lib()
+    for n in (8, 64, 72, 128):
+        assert lib.ssd_chunk_smem_bytes(n) == ssd.smem_bytes(n)
+    rng = np.random.default_rng(7)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+    BH = Bsz * H
+    args = (t(rng.standard_normal((BH, nc, Q, P)) * 0.5),
+            t(rng.uniform(0.01, 0.2, (BH, nc, Q, 1))),
+            t(rng.standard_normal((Bsz, nc, Q, N)) * 0.5),
+            t(rng.standard_normal((Bsz, nc, Q, N)) * 0.5),
+            t(-rng.uniform(0.5, 2.0, (BH, 1))))
+    got = ssd.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, ssd_chunk_plain(*args)):
+        assert float((g_ - w_).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal", [
+    (3, 100, 100, 4, 2, 64, False),    # ragged tile, last batch's end
+    (3, 100, 100, 4, 4, 128, True),
+    (2, 64, 200, 4, 2, 64, False),     # T > S
+    (2, 70, 200, 8, 2, 128, True),
+    (1, 130, 130, 4, 1, 16, True),
+    (2, 96, 96, 2, 2, 32, False),
+])
+def test_flash_f32_kernel_edges(B, S, T, H, K, hd, causal):
+    """The float32 kernel (split-TF32 on the tensor cores, TMA) where its
+    tiles meet the edges: a ragged last tile that TMA must zero-fill rather
+    than read from the next batch, and more keys than queries; against the
+    plain version at 2e-5."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(B * S + T + hd)
+    q = torch.randn(B, S, H, hd, generator=g, device=dev)
+    k = torch.randn(B, T, K, hd, generator=g, device=dev)
+    v = torch.randn(B, T, K, hd, generator=g, device=dev)
+    before = fa.LAUNCHES
+    out = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    plain = attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal).transpose(1, 2)
+    assert bool(torch.isfinite(out).all())
+    err = float((out - plain).abs().max())
+    assert err <= 2e-5, err
 
 
 def test_lm_kernels_raise_on_wrong_device_or_dtype():
