@@ -55,6 +55,36 @@ Phases, each of which makes the script exit non-zero when it fails:
    tail), float32, B 2, S 256, runs on the card (kernels) and on the CPU
    (plain versions) from the same weights: prefill logits and 4 decode
    steps agree within 1e-5·max|logits|.
+9. fleet: ``bench_fleet()`` (44 scenarios) through ``FleetRunner.run`` on
+   the card, 600 s at dt 0.5, for tcp and appaware (``"waterfill"``), and
+   appaware (``"sort"``) and appfair at ``FLEET_SHORT_S``: finite metrics,
+   appaware beats tcp on the six paper-grid rows, and the waterfill run
+   makes exactly one kernel launch per bucket update (this is the fleet's
+   main-path run, counts set to 0 just before it). One scenario per bucket
+   is held against the per-scenario ``simulate`` on the card at 60 s, at
+   the fleet tests' tolerances (sink atol 1e-4, latency rtol 1e-4 atol
+   1e-3, link load atol 1e-4). Prints, per policy, wall s per fleet run
+   (scenario staging and the pack copies included), scenarios/s, buckets,
+   waterfill launches and peak device memory;
+10. campaign: ``run_campaign`` over ``campaign_fleet(CAMPAIGN_N)`` (4,096
+    scenarios) at ``CAMPAIGN_S`` (60 s: the auto sizing's small chunks make
+    600 s too long for this run), appaware through the kernel,
+    ``chunk_rows="auto"``: every row finite, one launch per chunk update;
+    prints scenarios/s, chunks, the pipeline's timing split and overlap
+    fractions, peak staged bytes and peak device memory. The same campaign
+    in chunks of ``CAMPAIGN_ROWS`` agrees within 1e-4 relative (batch
+    sizes change the card's reduction order). Then ``waterfill_fleet``
+    against its plain version at the campaign's chunk shapes (rows × 16
+    links × 17 flows; the auto and the large chunks), timed as in phase 3;
+    and a 256-scenario campaign equals
+    ``FleetRunner.run`` bit for bit at the same padded rows;
+11. resilience on the card, on that 256-scenario campaign in chunks of 32:
+    a transient transfer fault and a poisoned scenario (a ``FaultPlan``)
+    leave every clean row bit for bit equal to the fault-free run and
+    quarantine exactly the poisoned scenario; a ``FaultAbort`` kills a
+    checkpointed run, and the resumed run (checkpoint in a temporary
+    directory) runs only the chunks that were not done and equals the
+    fault-free run bit for bit.
 
 Before its last line the script prints one JSON object describing each
 kernel, then the card's name and power limit; the last line is
@@ -312,6 +342,13 @@ def main() -> int:
     from repro_torch.streams import (
         compile_sim, parallelize, round_robin, trending_topics, trucking_iot)
 
+    marks = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        """Print the seconds since the previous phase ended."""
+        marks.append(time.perf_counter())
+        print(f"phase {phase} in {marks[-1] - marks[-2]:.2f} s")
+
     # ---- 1. device ------------------------------------------------------
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -319,6 +356,7 @@ def main() -> int:
     print(f"device: {smi} | torch: {kind} | count {count} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda:0")
+    lap("1 (device)")
 
     # ---- 2. build -------------------------------------------------------
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -335,6 +373,7 @@ def main() -> int:
     for name, src in sources.items():
         print_build(src.name, build.BUILD_INFO[name])
     ops._lib()
+    lap("2 (build)")
 
     # ---- 3. kernel vs plain ---------------------------------------------
     results = {}
@@ -361,6 +400,7 @@ def main() -> int:
     check(bool(ops.streamed_rows(big[3]).all()),
           "streamed case: every row exceeds the list budget")
     results["streamed"] = phase_kernel("streamed", big)
+    lap("3 (waterfill vs plain)")
 
     # ---- 4. paper grid --------------------------------------------------
     for app, mk in (("TT", trending_topics), ("TI", trucking_iot)):
@@ -385,6 +425,7 @@ def main() -> int:
                   f"grid {app}@{c}: appaware within 1% of the reference")
             check(launched == 120, f"grid {app}@{c}: 120 launches, got "
                                    f"{launched}")
+    lap("4 (paper grid)")
 
     # ---- 5. datacenter scenario (the main-path run) ---------------------
     F, L = sim_dc.R.shape
@@ -412,6 +453,30 @@ def main() -> int:
     check(main_launches > 0, "datacenter: the main path launched waterfill")
     check(dc[("appaware", "sort")][2] == 0 and dc[("tcp", "sort")][2] == 0,
           "datacenter: sort/tcp runs never launch waterfill")
+    lap("5 (datacenter)")
+
+    # ---- 6. what the LM path's kernels compiled to (built in phase 2) --
+    phase_sass([build.BUILD_DIR / f"lib{n}.so"
+                for n in (fa_ops.NAME, ssd_ops.NAME)])
+    lap("6 (SASS)")
+
+    # ---- 7. LM kernels vs plain versions --------------------------------
+    flash = phase_flash(dev)
+    ssd = phase_ssd(dev)
+    lap("7 (LM kernels vs plain)")
+
+    # ---- 8. serve zamba2-1.2b at full width (the LM main-path run) ------
+    launches = phase_serve(dev)
+    phase_numeric_7layer(dev)
+    lap("8 (serving)")
+
+    # ---- 9-11. fleet, campaign, resilience ------------------------------
+    fleet = phase_fleet(dev)
+    lap("9 (fleet)")
+    camp = phase_campaign(dev)
+    lap("10 (campaign)")
+    phase_resilience(dev)
+    lap("11 (resilience)")
 
     main = results["datacenter"]["shared"]
     kernels = [{
@@ -427,20 +492,16 @@ def main() -> int:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": None,
+        # the fleet's main path (phase 9) and the kernel at a campaign
+        # chunk's shape (phase 10)
+        "fleet_launches": fleet["launches"],
+        "fleet_shape": camp["shape"],
+        "fleet_max_abs_err": camp["max_abs_err"],
+        "fleet_ms": camp["ms"],
+        "fleet_plain_ms": camp["plain_ms"],
+        "fleet_bound_ms": camp["bound_ms"],
+        "fleet_bound_by": camp["bound_by"],
     }]
-
-    # ---- 6. what the LM path's kernels compiled to (built in phase 2) --
-    phase_sass([build.BUILD_DIR / f"lib{n}.so"
-                for n in (fa_ops.NAME, ssd_ops.NAME)])
-
-    # ---- 7. LM kernels vs plain versions --------------------------------
-    flash = phase_flash(dev)
-    ssd = phase_ssd(dev)
-
-    # ---- 8. serve zamba2-1.2b at full width (the LM main-path run) ------
-    launches = phase_serve(dev)
-    phase_numeric_7layer(dev)
-
     for name, src, rep, res, lib_ms in (
             ("flash_attention",
              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -459,6 +520,289 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0
+
+
+# ---- fleet, campaign, resilience (phases 9-11) ---------------------------
+FLEET_S = 600.0          # the paper's run length
+FLEET_SHORT_S = 120.0    # appaware/sort and appfair
+HOLD_S = 60.0            # fleet rows held against simulate
+CAMPAIGN_N = 4096
+# cut from the paper's 600 s: chunk_rows="auto" lands at its 16-row floor on
+# the card (the calibration credits the host-bound solve probe as per-row
+# compute), so the campaign runs ~260 chunks of one host tick loop each
+CAMPAIGN_S = 60.0
+CAMPAIGN_ROWS = 256      # the same campaign in chunks of this many rows
+SMALL_N = 256            # the bitwise and resilience campaigns
+SMALL_S = 60.0
+
+
+def timed(fn):
+    """``fn()`` and its wall seconds, the card synchronised on both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_fleet(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.waterfill import ops
+    from repro_torch.streams import (FleetRunner, bench_fleet, compile_fleet,
+                                     simulate)
+
+    # scenario state on the host; the runner copies each bucket's pack to
+    # the card once
+    sims, build_s = timed(lambda: compile_fleet(bench_fleet(), device="cpu"))
+    runner = FleetRunner(device=dev)
+    print(f"fleet: bench_fleet {len(sims)} scenarios built in {build_s:.2f} s;"
+          f" calibration {runner.tick_overhead:.0f} proxy FLOPs per bucket "
+          f"tick")
+    runs, launches = {}, {}
+    for policy, solver, seconds in (
+            ("tcp", "sort", FLEET_S), ("appaware", "waterfill", FLEET_S),
+            ("appaware", "sort", FLEET_SHORT_S),
+            ("appfair", "sort", FLEET_SHORT_S)):
+        torch.cuda.reset_peak_memory_stats()
+        ops.LAUNCHES = 0
+        res, wall = timed(lambda: runner.run(sims, policy, seconds=seconds,
+                                             solver=solver))
+        launched = ops.LAUNCHES
+        st = runner.last_stats
+        n_upd = -(-int(round(seconds / 0.5)) // 10)   # appaware: every 5 s
+        print(f"fleet {policy}/{solver} {seconds:.0f} s: {wall:.2f} s wall, "
+              f"{len(sims) / wall:.2f} scenarios/s, {st['n_buckets']} buckets "
+              f"(rows {st['rows']}), waterfill launches {launched}, peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+              f"MiB")
+        for r in res:
+            check(bool(np.isfinite(r.metrics[:5]).all()),
+                  f"fleet {policy}/{solver}: finite metrics")
+        if solver == "waterfill":
+            check(launched == st["n_buckets"] * n_upd,
+                  f"fleet waterfill: {launched} launches != "
+                  f"{st['n_buckets']} buckets x {n_upd} updates")
+        else:
+            check(launched == 0, f"fleet {policy}/{solver} launched "
+                                 f"waterfill")
+        runs[(policy, solver)] = res
+        launches[(policy, solver)] = launched
+    for k in range(6):     # the paper grid: TT and TI at three capacities
+        tcp = runs[("tcp", "sort")][k].throughput_tps
+        aa = runs[("appaware", "waterfill")][k].throughput_tps
+        print(f"fleet grid row {k}: tcp {tcp:.3f} -> appaware {aa:.3f} "
+              f"tuples/s")
+        check(aa > tcp, f"fleet grid row {k}: appaware beats tcp")
+    # one scenario per bucket against the per-scenario simulate on the card
+    for policy, solver in (("tcp", "sort"), ("appaware", "waterfill")):
+        res = runner.run(sims, policy, seconds=HOLD_S, solver=solver)
+        for idxs, _ in runner.plan(sims, policy):
+            i = idxs[0]
+            ref = simulate(sims[i], policy, seconds=HOLD_S, solver=solver,
+                           device=dev)
+            r = res[i]
+            err = (float(np.abs(r.sink_mb - ref.sink_mb).max()),
+                   float(np.abs(r.link_load - ref.link_load).max()))
+            print(f"fleet hold {policy}/{solver} scenario {i}: sink max|Δ| "
+                  f"{err[0]:.3e}, link load max|Δ| {err[1]:.3e}")
+            check(err[0] <= 1e-4 and err[1] <= 1e-4,
+                  f"fleet hold {policy} scenario {i}: {err}")
+            check(np.allclose(r.latency, ref.latency, rtol=1e-4, atol=1e-3),
+                  f"fleet hold {policy} scenario {i}: latency")
+    return {"launches": launches[("appaware", "waterfill")]}
+
+
+def fleet_kernel(dev, sims, rows: int) -> dict:
+    """``waterfill_fleet`` against its plain version at a campaign chunk's
+    shape: the masks of ``rows`` campaign scenarios of one shape, flow
+    state uniform 0..10 from a seed; device time from a CUDA graph of 20
+    calls, and the bound (mask read and output written once, [rows, F]
+    flow state and [rows, L] capacity and kind read once; operations as in
+    phase 3)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.waterfill import ops
+    from repro_torch.kernels.waterfill.ref import (N_BISECT,
+                                                   waterfill_fleet_plain)
+    from repro_torch.net.topology import LinkKind
+
+    F0 = sims[0].R.shape[0]
+    members = [s for s in sims if s.R.shape[0] == F0][:rows]
+    Bn = len(members)
+    F, L = members[0].R.shape
+    rng = np.random.default_rng(2)
+    mask = torch.stack([(s.R.T > 0).to(torch.float32) for s in members]).to(
+        dev).contiguous()
+    cap = torch.stack([s.caps for s in members]).to(dev).contiguous()
+    kind = torch.stack([(s.kinds == int(LinkKind.DOWNLINK)).to(torch.int32)
+                        for s in members]).to(dev).contiguous()
+    w, bl, rho = (torch.tensor(rng.uniform(lo, 10, (Bn, F)).astype(
+        np.float32), device=dev) for lo in (0.0, 0.0, 0.1))
+    out = ops.waterfill_fleet(w, bl, rho, mask, cap, kind, dt=WATERFILL_DT)
+    torch.cuda.synchronize()
+    plain = waterfill_fleet_plain(w, bl, rho, mask, cap, kind, WATERFILL_DT)
+    err = float((out - plain).abs().max())
+    tol = 1e-4 * float(cap.max())
+    check(bool(torch.isfinite(out).all()), "waterfill_fleet: finite")
+    check(err <= tol, f"waterfill_fleet: max|Δ| {err} > {tol}")
+    call = (lambda: ops.waterfill_fleet(w, bl, rho, mask, cap, kind,
+                                        dt=WATERFILL_DT))
+    ms = graph_ms(call)
+    eager_ms = event_ms(call, reps=50)
+    plain_ms = event_ms(lambda: waterfill_fleet_plain(
+        w, bl, rho, mask, cap, kind, WATERFILL_DT), reps=5, warmup=1)
+    nnz = float(mask.sum())
+    nnz_down = float((mask * (kind == 1)[..., None]).sum())
+    n_bytes = 4 * (2 * Bn * L * F + 3 * Bn * F + 2 * Bn * L)
+    ops_n = 5 * (N_BISECT + 1) * nnz_down + 10 * nnz
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops_n / PEAK_F32_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    shape = f"{Bn}x{L}x{F}"
+    print(f"kernel waterfill_fleet [{shape}, {Bn * L} blocks]: max_abs_err "
+          f"{err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms (eager calls "
+          f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.3e}"
+          f" ms ({bound_by}), bound/kernel {bound_ms / ms:.4f}; the bound "
+          f"lies below a launch's own latency (a few microseconds)")
+    return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_campaign(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.waterfill import ops
+    from repro_torch.streams import FleetRunner, campaign_fleet, compile_fleet
+
+    sims, build_s = timed(lambda: compile_fleet(campaign_fleet(CAMPAIGN_N),
+                                                device="cpu"))
+    runner = FleetRunner(device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.LAUNCHES = 0
+    cr, wall = timed(lambda: runner.run_campaign(
+        sims, "appaware", seconds=CAMPAIGN_S, solver="waterfill",
+        chunk_rows="auto"))
+    st = runner.last_stats
+    n_upd = -(-int(round(CAMPAIGN_S / 0.5)) // 10)
+    print(f"campaign: campaign_fleet({CAMPAIGN_N}) built in {build_s:.2f} s;"
+          f" appaware/waterfill {CAMPAIGN_S:.0f} s: {wall:.2f} s wall, "
+          f"{CAMPAIGN_N / wall:.2f} scenarios/s, {st['n_chunks']} chunks in "
+          f"{st['n_buckets']} buckets (rows {st['rows']}, auto targets "
+          f"{st['target_chunk_rows']}), waterfill launches {ops.LAUNCHES}")
+    print("campaign: stage_s {stage_s:.3f}, transfer_s {transfer_s:.3f}, "
+          "transfer_wait_s {transfer_wait_s:.3f}, dispatch_s {dispatch_s:.3f},"
+          " block_s {block_s:.3f}, wall_s {wall_s:.3f}; overlap_fraction "
+          "{overlap_fraction:.3f}, transfer_overlap {transfer_overlap:.3f}; "
+          "peak staged {peak_staged_rows} rows, {peak_staged_bytes} bytes"
+          .format(**st))
+    cal = st["calibration"]
+    print(f"campaign: calibration dispatch {cal['dispatch_us']:.1f} us, "
+          f"fetch {cal['sync_us']:.1f} us, tick {cal['tick_overhead_us']:.2f}"
+          f" us, proxy {cal['proxy_mflops']:.0f} MFLOP/s -> "
+          f"{cal['tick_overhead_flops']:.0f} (clamped {cal['clamped']}); "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    check(st["status"] == "ok" and not cr.failures, "campaign: clean run")
+    check(bool(np.isfinite(cr.metrics[:, :5]).all()),
+          "campaign: finite metrics")
+    check(ops.LAUNCHES == st["n_chunks"] * n_upd,
+          f"campaign: {ops.LAUNCHES} launches != {st['n_chunks']} chunks x "
+          f"{n_upd} updates")
+    # the same campaign in large chunks: what the auto sizing costs here
+    big, wall_big = timed(lambda: runner.run_campaign(
+        sims, "appaware", seconds=CAMPAIGN_S, solver="waterfill",
+        chunk_rows=CAMPAIGN_ROWS))
+    st_big = runner.last_stats
+    same = big.metrics == cr.metrics          # +inf recovery times too
+    with np.errstate(invalid="ignore"):
+        rel = np.abs(big.metrics - cr.metrics) / np.maximum(
+            np.abs(cr.metrics), 1e-6)
+    diff = float(np.where(same, 0.0, rel).max())
+    print(f"campaign: chunk_rows={CAMPAIGN_ROWS}: {wall_big:.2f} s wall, "
+          f"{CAMPAIGN_N / wall_big:.2f} scenarios/s, {st_big['n_chunks']} "
+          f"chunks (rows {st_big['rows']}), dispatch_s "
+          f"{st_big['dispatch_s']:.3f}, overlap_fraction "
+          f"{st_big['overlap_fraction']:.3f}, peak staged "
+          f"{st_big['peak_staged_bytes']} bytes; max relative |Δ| against "
+          f"the auto-chunked rows {diff:.3e}")
+    check(diff <= 1e-4, f"campaign: chunk sizes disagree by {diff}")
+    kern = fleet_kernel(dev, sims, max(st["rows"]))
+    fleet_kernel(dev, sims, max(st_big["rows"]))
+    # the campaign equals FleetRunner.run at the same padded rows: chunks
+    # as large as the buckets
+    small = sims[:SMALL_N]
+    a = runner.run_campaign(small, "appaware", seconds=SMALL_S,
+                            solver="waterfill", chunk_rows=SMALL_N)
+    rows_c = runner.last_stats["rows"]
+    b = runner.run(small, "appaware", seconds=SMALL_S, solver="waterfill")
+    check(rows_c == runner.last_stats["rows"],
+          f"campaign vs run: rows {rows_c} vs {runner.last_stats['rows']}")
+    check(np.array_equal(a.metrics, np.stack([r.metrics for r in b])),
+          "campaign vs run: bitwise at the same padded rows")
+    print(f"campaign: {SMALL_N}-scenario campaign equals FleetRunner.run bit "
+          f"for bit (rows {rows_c})")
+    return kern
+
+
+def phase_resilience(dev) -> None:
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.streams import (FaultAbort, FaultPlan, FaultSpec,
+                                     FleetRunner, campaign_fleet,
+                                     compile_fleet)
+
+    sims = compile_fleet(campaign_fleet(SMALL_N), device="cpu")
+    runner = FleetRunner(device=dev)
+    kw = dict(seconds=SMALL_S, solver="waterfill", chunk_rows=32,
+              retry_backoff_s=0.001, retry_backoff_cap_s=0.01)
+    clean = runner.run_campaign(sims, "appaware", **kw).metrics.copy()
+    n_chunks = runner.last_stats["n_chunks"]
+    poisoned = SMALL_N // 3
+    fp = FaultPlan([FaultSpec("transfer", chunk=1, times=1)],
+                   poison={poisoned})
+    cr = runner.run_campaign(sims, "appaware", faults=fp, **kw)
+    st = runner.last_stats
+    ok = np.arange(SMALL_N) != poisoned
+    print(f"resilience: {n_chunks} chunks; transfer faults fired "
+          f"{fp.n_fired('transfer')}, recovered chunks "
+          f"{st['n_recovered_chunks']}, retries {st['n_retries']}, "
+          f"quarantined {cr.quarantined.tolist()}")
+    check(st["status"] == "ok" and fp.n_fired("transfer") == 1,
+          "resilience: the transient fault fired and was retried")
+    check(cr.quarantined.tolist() == [poisoned],
+          "resilience: exactly the poisoned scenario quarantined")
+    check(bool(np.isnan(cr.metrics[poisoned]).all()),
+          "resilience: the quarantined row is NaN")
+    check(np.array_equal(cr.metrics[ok], clean[ok]),
+          "resilience: clean rows bitwise equal to the fault-free run")
+    with tempfile.TemporaryDirectory() as ck:
+        abort = FaultPlan([FaultSpec("abort", chunk=n_chunks - 1)])
+        try:
+            runner.run_campaign(sims, "appaware", faults=abort,
+                                checkpoint=ck, **kw)
+            check(False, "resilience: the abort did not propagate")
+        except FaultAbort:
+            pass
+        killed = runner.last_stats
+        check(killed["status"] == "failed", "resilience: failed status")
+        done = killed["n_chunks_done"]
+        res = runner.run_campaign(sims, "appaware", checkpoint=ck, **kw)
+        st = runner.last_stats
+    print(f"resilience: killed after {done} of {n_chunks} chunks; resume "
+          f"restored {st['n_chunks_resumed']} and ran {st['n_dispatches']}")
+    check(0 < done < n_chunks and st["n_chunks_resumed"] == done
+          and st["n_dispatches"] == n_chunks - done,
+          "resilience: the resume ran only what was not done")
+    check(np.array_equal(res.metrics, clean),
+          "resilience: resumed rows bitwise equal to the fault-free run")
 
 
 # ---- the LM serving path (phases 7-8) ------------------------------------

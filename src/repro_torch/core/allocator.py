@@ -225,6 +225,20 @@ def _per_link_rates_chunked(program: LinkProgram, state: FlowState,
     return torch.cat(rows, 0)
 
 
+def waterfill_args(program: LinkProgram, state: FlowState, dt: float):
+    """The waterfill kernel's inputs for one solve: the per-flow state as
+    [F] vectors (demand w, backlog L^r, drain ρ), the [L, F] on-link mask,
+    capacity [L] and the kind as 1 = downlink, else 0. INTERNAL links are
+    fed as uplinks; ``allocate`` never reads their rows (it handles internal
+    links by proportional scale-down), so only the UPLINK/DOWNLINK selection
+    has to agree with the exact solvers. Pure tensor code: the fleet runs it
+    under ``torch.func.vmap`` and makes one kernel launch for the batch."""
+    mask = (program.R.T > 0).to(torch.float32)                # [L, F]
+    kind01 = (program.kind == int(LinkKind.DOWNLINK)).to(torch.int32)
+    return (state.uplink_demand(), state.lr_t1, state.drain_rate(dt), mask,
+            program.capacity.to(torch.float32), kind01)
+
+
 def _per_link_rates_waterfill(program: LinkProgram, state: FlowState,
                               dt: float):
     """Same [L, F] solve through the Hopper waterfill kernel
@@ -233,19 +247,27 @@ def _per_link_rates_waterfill(program: LinkProgram, state: FlowState,
 
     The per-flow state ships as [F] vectors (``waterfill_flows``); only the
     on-link mask is [L, F], so no dense per-link broadcasts of w/backlog/ρ
-    are materialized. INTERNAL links are fed as uplinks; ``allocate`` never
-    reads their rows (it handles internal links by proportional
-    scale-down), so only the UPLINK/DOWNLINK selection has to agree with
-    the exact solvers.
+    are materialized.
     """
     from repro_torch.kernels.waterfill.ops import waterfill_flows
 
-    mask = (program.R.T > 0).to(torch.float32).contiguous()   # [L, F]
-    kind01 = (program.kind == int(LinkKind.DOWNLINK)).to(torch.int32)
-    return waterfill_flows(
-        state.uplink_demand().contiguous(), state.lr_t1.contiguous(),
-        state.drain_rate(dt).contiguous(), mask,
-        program.capacity.to(torch.float32).contiguous(), kind01, dt=dt)
+    args = [a.contiguous() for a in waterfill_args(program, state, dt)]
+    return waterfill_flows(*args, dt=dt)
+
+
+def _per_link_solve(program: LinkProgram, state: FlowState, dt: float,
+                    solver: str, block_links: int | None) -> torch.Tensor:
+    """The [L, F] per-link solve of eqs. (3)/(4) by ``solver`` (see
+    :func:`allocate`)."""
+    if solver == "sort":
+        if block_links is None and program.R.shape[1] > 2 * ALLOC_BLOCK_LINKS:
+            block_links = ALLOC_BLOCK_LINKS
+        if block_links:
+            return _per_link_rates_chunked(program, state, dt, block_links)
+        return _per_link_rates(program, state, dt)
+    if solver == "waterfill":
+        return _per_link_rates_waterfill(program, state, dt)
+    raise ValueError(f"unknown solver {solver!r}")
 
 
 def backfill(x: torch.Tensor, program: LinkProgram, iters: int = 8,
@@ -276,6 +298,7 @@ def allocate(
     backfill_iters: int = 8,
     solver: str = "sort",
     block_links: int | None = None,
+    per_link: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Algorithm 1, one interval: FlowState -> rate vector x [F] (MB/s).
 
@@ -291,19 +314,13 @@ def allocate(
             dispatches on the link count: single-pass below
             ``2 * ALLOC_BLOCK_LINKS`` links, chunks of ``ALLOC_BLOCK_LINKS``
             above it. Pass ``0`` to force the single-pass form at any size.
+    per_link: the [L, F] per-link solve, already computed (the fleet solves
+            a whole bucket in one waterfill launch from
+            :func:`waterfill_args`); ``solver`` is then not consulted.
     """
-    if solver == "sort":
-        if block_links is None and program.R.shape[1] > 2 * ALLOC_BLOCK_LINKS:
-            block_links = ALLOC_BLOCK_LINKS
-        if block_links:
-            per_link = _per_link_rates_chunked(program, state, dt,
-                                               block_links)   # [L, F]
-        else:
-            per_link = _per_link_rates(program, state, dt)     # [L, F]
-    elif solver == "waterfill":
-        per_link = _per_link_rates_waterfill(program, state, dt)  # [L, F]
-    else:
-        raise ValueError(f"unknown solver {solver!r}")
+    if per_link is None:
+        per_link = _per_link_solve(program, state, dt, solver,
+                                   block_links)               # [L, F]
     kind = program.kind
     on_link_T = program.R.T > 0
 

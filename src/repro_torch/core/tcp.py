@@ -73,15 +73,16 @@ def _order_matrix(d: torch.Tensor):
     """Demand rank order as a 0/1 matrix plus the matching stable-sort
     permutation: ``W[f, g] = [(d_g, g) ≤lex (d_f, f)]`` (ties broken by
     flow index — exactly ``argsort(d, stable=True)``'s order). ``rank[f]``
-    is f's position in the stable order, so scattering ``f → rank[f]``
-    inverts it into the permutation."""
+    is f's position in the stable order, a permutation of 0..F-1, so its
+    argsort inverts it into the permutation (out of place, so the solve
+    batches under ``torch.func.vmap``)."""
     F = d.shape[0]
     idx = torch.arange(F, device=d.device)
     W = ((d[None, :] < d[:, None])
          | ((d[None, :] == d[:, None])
             & (idx[None, :] <= idx[:, None]))).to(torch.float32)
     rank = W.sum(1).to(torch.int64) - 1                          # [F]
-    perm = torch.empty_like(idx).scatter_(0, rank, idx)
+    perm = torch.argsort(rank, stable=True)
     return W, perm
 
 

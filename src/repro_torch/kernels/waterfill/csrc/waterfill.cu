@@ -16,8 +16,11 @@
 // kernel and as repro_torch/kernels/waterfill/ref.py::waterfill_plain; only
 // the order of the float32 sums differs. w, backlog and rho are read with a
 // row stride: 0 for one [F] row shared by every link (the allocator's
-// layout), F for dense [L, F] inputs. Uplink rows skip the bisection, whose
-// result they never read.
+// layout), F for dense [L, F] inputs; and with a group stride: a fleet
+// bucket of B scenarios launches B*L blocks over [B*L, F] masks, block l
+// reading its scenario's [F] row at (l / links_per_group) * group_stride
+// (links_per_group = 0: no groups, the two layouts above). Uplink rows skip
+// the bisection, whose result they never read.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
 // cores): the function must read the [L, F] mask and write the [L, F]
@@ -247,10 +250,10 @@ __device__ void zero_row(float* o, int F) {
 
 __global__ void __launch_bounds__(kThreads) waterfill_kernel(
     const float* __restrict__ weights, const float* __restrict__ backlog,
-    const float* __restrict__ rho, long long flow_stride,
-    const float* __restrict__ mask, const float* __restrict__ cap,
-    const int* __restrict__ kind, float* __restrict__ out, int F, float dt,
-    int budget) {
+    const float* __restrict__ rho, long long flow_stride, int links_per_group,
+    long long group_stride, const float* __restrict__ mask,
+    const float* __restrict__ cap, const int* __restrict__ kind,
+    float* __restrict__ out, int F, float dt, int budget) {
   extern __shared__ float list[];  // budget x {index, m, a, b}
   int* l_idx = reinterpret_cast<int*>(list);
   float* l_m = list + budget;
@@ -260,9 +263,12 @@ __global__ void __launch_bounds__(kThreads) waterfill_kernel(
   __shared__ int counts[2][kVec][kWarps];
 
   const long long l = blockIdx.x;
-  const float* w = weights + l * flow_stride;
-  const float* bl = backlog + l * flow_stride;
-  const float* r = rho + l * flow_stride;
+  const long long row =
+      (links_per_group > 0 ? (l / links_per_group) * group_stride : 0) +
+      l * flow_stride;
+  const float* w = weights + row;
+  const float* bl = backlog + row;
+  const float* r = rho + row;
   const float* m = mask + l * static_cast<long long>(F);
   float* o = out + l * static_cast<long long>(F);
   const float c = cap[l];
@@ -418,11 +424,13 @@ __global__ void __launch_bounds__(kThreads) waterfill_kernel(
 
 }  // namespace
 
-// Launches one block per link on `stream` with a list of at most `budget`
-// flows in dynamic shared memory, and returns cudaGetLastError() (0 on
-// success). Pointers are device pointers; the caller allocates `out`.
+// Launches one block per link row (L rows: B*L for a fleet bucket, within
+// the grid's x limit of 2^31 - 1) on `stream` with a list of at most
+// `budget` flows in dynamic shared memory, and returns cudaGetLastError()
+// (0 on success). Pointers are device pointers; the caller allocates `out`.
 extern "C" int waterfill_launch(const float* weights, const float* backlog,
                                 const float* rho, long long flow_stride,
+                                int links_per_group, long long group_stride,
                                 const float* mask, const float* cap,
                                 const int* kind, float* out, int L, int F,
                                 float dt, int budget, void* stream) {
@@ -434,8 +442,8 @@ extern "C" int waterfill_launch(const float* weights, const float* backlog,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   waterfill_kernel<<<L, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      weights, backlog, rho, flow_stride, mask, cap, kind, out, F, dt,
-      budget);
+      weights, backlog, rho, flow_stride, links_per_group, group_stride, mask,
+      cap, kind, out, F, dt, budget);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,6 +9,8 @@ Link semantics (paper Alg. 1):
   ``N_BISECT`` bisection rounds on θ, float32, the same constants and
   branches. The wrapper (``ops.py``) runs it for CPU tensors; on the card
   it is the yardstick the kernel is held to.
+* :func:`waterfill_fleet_plain` — the same on a fleet bucket's [B, L, F]
+  layout (``ops.waterfill_fleet``'s plain version);
 * :func:`waterfill_ref` — the exact sort-based oracle: the allocator's
   ``solve_uplink``/``solve_downlink`` over the link batch.
 """
@@ -61,6 +63,20 @@ def waterfill_plain(weights, backlog, rho, mask, capacity, kind,
     x_up = cap * wm / up_den
     x_dn = torch.clamp_min(theta * r - L_r, 0.0) * m / dt * dn_scale
     return torch.where(kind[:, None] == 1, x_dn, x_up)
+
+
+def waterfill_fleet_plain(weights, backlog, rho, mask, capacity, kind,
+                          dt: float = 1.0) -> torch.Tensor:
+    """The fleet layout of :func:`waterfill_plain`: weights/backlog/rho
+    [B, F] (scenario b's flow state, shared by its links), mask [B, L, F],
+    capacity/kind [B, L]; returns [B, L, F]. Scenario b's links are dense
+    rows of its own flow state."""
+    Bn, L, F = mask.shape
+    rows = [v[:, None, :].expand(Bn, L, F).reshape(Bn * L, F)
+            for v in (weights, backlog, rho)]
+    return waterfill_plain(*rows, mask.reshape(Bn * L, F),
+                           capacity.reshape(Bn * L), kind.reshape(Bn * L),
+                           dt).reshape(Bn, L, F)
 
 
 def waterfill_ref(weights, backlog, rho, mask, capacity, kind,

@@ -25,10 +25,14 @@ open:
                                 runs *inside* each scenario as a schedule;
   * ``seed_fleet``            — a mixed ≥16-scenario fleet of all of the
                                 above (including in-run schedules), the
-                                default benchmark/test corpus.
-
-The campaign and benchmark corpora (``campaign_fleet``, ``bench_fleet``) of
-the reference serve its fleet engine and are not part of this package yet.
+                                default benchmark/test corpus;
+  * ``campaign_fleet``        — N-scenario streaming-campaign corpus
+                                (``FleetRunner.run_campaign``): the paper's
+                                capacity grid × {static, in-run failure,
+                                diurnal} × a seeded jitter axis, tiled to
+                                exactly N scenarios over only 6 distinct
+                                padded shapes;
+  * ``bench_fleet``           — the 44-scenario fleet corpus.
 """
 from __future__ import annotations
 
@@ -258,3 +262,54 @@ def seed_fleet(seed: int = 0) -> list[Scenario]:
         + time_varying_sweep(n_phases=2, seed=seed,
                              in_run=True)                    # 2
     )
+
+
+def campaign_fleet(n: int, seed: int = 0, n_machines: int = 8,
+                   n_fail: int = 2) -> list[Scenario]:
+    """Parameterized campaign corpus for the streaming runtime: tile
+    {TT, TI} × the paper's capacity grid × {static, in-run link failure,
+    in-run diurnal cycle} to exactly ``n`` scenarios, with a seeded rng
+    jittering the per-scenario knobs (failed links and failure window,
+    cycle phase/period/amplitude) so every scenario is distinct.
+
+    The tiling deliberately spans only 6 distinct padded shapes (2 app
+    graphs × {no schedule, ``n_fail``-event schedule, 1-sinusoid
+    schedule}), so however large ``n`` grows the bucket plan and the
+    per-bucket staging shapes stay fixed — the property
+    ``FleetRunner.run_campaign`` exploits to stream 10³–10⁴ scenarios
+    through a handful of bucket shapes.
+    """
+    rng = np.random.default_rng(seed)
+    caps = list(PAPER_CAPS_MBPS.values())
+    out = []
+    for k in range(n):
+        app_name = ("TT", "TI")[k % 2]
+        g = parallelize(_SEED_APPS[app_name](), seed=seed)
+        cap = caps[(k // 2) % len(caps)]
+        kind = ("static", "fail", "diurnal")[(k // (2 * len(caps))) % 3]
+        topo = big_switch(n_machines, cap)
+        if kind == "fail":
+            failed = rng.choice(topo.n_links, size=n_fail, replace=False)
+            t_fail = float(rng.uniform(50.0, 70.0))
+            sched = link_failure_schedule(
+                topo, failed, t_fail,
+                t_fail + float(rng.uniform(20.0, 40.0)),
+                float(rng.uniform(0.05, 0.3)))
+        elif kind == "diurnal":
+            sched = diurnal_schedule(
+                topo, period_s=float(rng.uniform(80.0, 160.0)),
+                amplitude=float(rng.uniform(0.2, 0.5)),
+                phase=float(rng.uniform(0.0, 2.0 * np.pi)))
+        else:
+            sched = None
+        out.append(Scenario(f"{app_name}_{kind}{k}", g, topo,
+                            round_robin(g, n_machines), schedule=sched))
+    return out
+
+
+def bench_fleet(seed: int = 0, n_random: int = 16) -> list[Scenario]:
+    """The canonical 44-scenario benchmark corpus: :func:`seed_fleet` plus
+    ``n_random`` extra random DAGs (fixed generator seed 42, matching the
+    reference's fleet benchmark). The same scenarios as the reference's
+    ``bench_fleet``, so the two packages' fleets can be compared."""
+    return seed_fleet(seed=seed) + random_scenarios(n_random, seed=42)

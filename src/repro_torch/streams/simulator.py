@@ -14,12 +14,15 @@ Each tick (``dt`` seconds):
   3. emission: consumed MB × selectivity is split over outgoing flows per the
      grouping weights; sources additionally generate gen_rate·dt.
 
-The run is a Python loop over ticks that writes each tick's outputs into
-preallocated ``[T, ...]`` device tensors. Policies re-solve their rates on
+The run is a Python loop over ticks whose per-tick outputs are stacked into
+``[T, ...]`` device tensors at its end. Policies re-solve their rates on
 update ticks (TCP every tick — idealized instant congestion control;
 App-aware every Δt, matching the paper's 5 s controller interval). Whether a
 tick updates depends only on the host-side tick counter, and nothing in the
-loop reads a device value back, so the host runs ahead of the card.
+loop reads a device value back, so the host runs ahead of the card. The
+update and the tick are functional steps (``_update``, ``_advance``): one
+sim runs them directly (``_run``), a fleet bucket runs them under
+``torch.func.vmap`` over its scenarios (``_run_bucket``).
 
 **In-run network dynamics:** link capacity is a function of time. A
 :class:`repro_torch.net.topology.LinkSchedule` compiles into per-sim
@@ -360,8 +363,10 @@ def _caps_over(sim: CompiledSim, ts: torch.Tensor) -> torch.Tensor:
 
     Computed once per run, before the tick loop. Sims without sinusoids
     (S = 0) or events (E = 0) skip those terms by shape. Events on the same
-    link compose as a product (``scatter_reduce_`` with ``"prod"``; a plain
-    indexed multiply would keep only the last write).
+    link compose as a product: each link multiplies the factors of the
+    events on it, in event order, through an [E, L] one-hot (out of place,
+    so the fleet evaluates a whole bucket under ``torch.func.vmap``; a
+    plain indexed multiply would keep only the last write).
     """
     T, L = ts.shape[0], sim.caps.shape[0]
     caps = sim.caps[None, :].expand(T, L)
@@ -375,9 +380,9 @@ def _caps_over(sim: CompiledSim, ts: torch.Tensor) -> torch.Tensor:
             ts[:, None] < sim.ev_t1[None])                  # [T, E]
         mult = torch.where(active, sim.ev_scale[None], 1.0)
         idx = torch.clamp(sim.ev_link, 0, L - 1)
-        scale = torch.ones((T, L), dtype=caps.dtype, device=caps.device)
-        scale.scatter_reduce_(1, idx[None, :].expand(T, -1), mult, "prod")
-        caps = caps * scale
+        on = idx[:, None] == torch.arange(L, device=idx.device)[None, :]
+        scale = torch.where(on[None], mult[:, :, None], 1.0).prod(1)
+        caps = caps * scale                                  # [T, L]
     return torch.clamp_min(caps, 0.0)
 
 
@@ -460,9 +465,12 @@ def _tick(sim: CompiledSim, Qs, Qr, x, dt, qcap, caps_t=None, enforce=True,
 
     With ``caps_t`` given and ``enforce`` true, the network enforces the
     current capacity: between controller updates a failed/shrunk link moves
-    at most caps_t·dt, whatever the stale rate vector says. ``R_t`` is the
-    tick's active routing matrix when a route bank is attached (``None``
-    reads ``sim.R``).
+    at most caps_t·dt, whatever the stale rate vector says. ``enforce`` is
+    a Python bool for a lone sim and a per-scenario bool tensor in a fleet
+    bucket: an un-enforced row multiplies its transfer by exactly 1.0, so a
+    static scenario padded into a scheduled bucket keeps its static
+    transfer bit for bit. ``R_t`` is the tick's active routing matrix when
+    a route bank is attached (``None`` reads ``sim.R``).
     """
     R = sim.R if R_t is None else R_t
     dst, src = sim.dst_of_flow, sim.src_of_flow
@@ -470,7 +478,7 @@ def _tick(sim: CompiledSim, Qs, Qr, x, dt, qcap, caps_t=None, enforce=True,
     # receiver-window flow control: never overflow the receive buffer
     desired = torch.minimum(torch.minimum(Qs, x * dt),
                             torch.clamp_min(qcap - Qr, 0.0))
-    if caps_t is None or not enforce:
+    if caps_t is None or enforce is False:
         # static capacities: the policies' rate vectors are already
         # link-feasible, so the transfer needs no per-tick capacity check
         transfer = desired
@@ -482,6 +490,8 @@ def _tick(sim: CompiledSim, Qs, Qr, x, dt, qcap, caps_t=None, enforce=True,
             1.0)
         fscale = torch.where(R > 0, lscale[None, :], _INF).amin(1)
         fscale = torch.where(torch.isfinite(fscale), fscale, 1.0)
+        if enforce is not True:
+            fscale = torch.where(enforce, fscale, 1.0)
         transfer = desired * fscale
     Qs = Qs - transfer
     Qr = Qr + transfer
@@ -562,9 +572,10 @@ def _tcp_rates(sim: CompiledSim, R, caps_t, Qs, Qr, prod_rate, drain_ewma,
 
 
 def _appaware_rates(sim: CompiledSim, R, caps_t, state: FlowState, dt_alloc,
-                    backfill_iters=8, solver: str = "sort"):
+                    backfill_iters=8, solver: str = "sort", per_link=None):
     x = allocate(sim.program_at(caps_t, R=R), state, dt=dt_alloc,
-                 backfill_iters=backfill_iters, solver=solver)
+                 backfill_iters=backfill_iters, solver=solver,
+                 per_link=per_link)
     return torch.where(sim.has_links, x, INTERNAL_RATE)
 
 
@@ -682,22 +693,111 @@ class SimResult:
         return float(first_out + int(np.argmax(ok))) * self.dt
 
 
+# --------------------------------------------------------------------------
+# the tick loop: one functional update / advance pair, run on one sim or,
+# under torch.func.vmap, on a fleet bucket
+# --------------------------------------------------------------------------
+POLICIES = ("tcp", "fixed", "appaware", "appfair")
+
+# The fields a tick reads (the schedule and route-bank fields are consumed
+# once per run, before the loop, by `_caps_over` / `_route_states_over`).
+STEP_FIELDS = (
+    "R", "caps", "kinds", "has_links", "M_in", "w_out", "p_in", "proc_rate",
+    "selectivity", "gen_rate", "is_join", "is_sink", "join_dst", "droppable",
+    "dst_of_flow", "src_of_flow", "w_of_flow", "app_of_flow", "app_of_inst",
+)
+
+
+def _init_carry(policy: str, F: int, A: int, device):
+    """The loop state ``(Qs, Qr, B, x, v_acc, ls, lr, prod_rate,
+    drain_ewma, mu, mu_acc, oc)``: queues, the appaware profiler's backlog
+    and interval accumulators, tcp's demand terms, appfair's throughput
+    EWMA, and tcp's demand-order cache (an empty tuple for the others)."""
+    z = torch.zeros((F,), dtype=torch.float32, device=device)
+    mu0 = torch.zeros((A,), dtype=torch.float32, device=device)
+    oc = maxmin_order_init(F, device=device) if policy == "tcp" else ()
+    return (z, z, z, z, z, z, z, z, z, mu0, mu0, oc)
+
+
+def _flow_state(carry) -> FlowState:
+    """What the application profiler reports at an update: the interval's
+    start backlogs, its transfer, and the *useful* receiver backlog B
+    (bytes transferred but not yet joined)."""
+    Qs, _, B, _, v_acc, ls, lr = carry[:7]
+    return FlowState(ls_t=ls, lr_t=lr, v=v_acc, ls_t1=Qs, lr_t1=B)
+
+
+def _update(sim: CompiledSim, policy: str, carry, R_upd, caps_upd, x_fixed,
+            *, dt: float, upd_every: int, alpha: float, n_groups: int,
+            qcap: float, solver: str, per_link=None):
+    """A controller update: the policy's new rate vector, and the interval
+    accumulators reset. Returns ``(carry', rebuilt)``; ``rebuilt`` is tcp's
+    order-cache rebuild flag (False for the other policies). ``per_link``
+    is appaware's per-link solve when the caller already made it (the
+    fleet's one waterfill launch per bucket update)."""
+    (Qs, Qr, B, x, v_acc, ls, lr, prod_rate, drain_ewma, mu, mu_acc,
+     oc) = carry
+    reb = torch.zeros((), dtype=torch.bool, device=Qs.device)
+    if policy == "tcp":
+        x, oc, reb = _tcp_rates(sim, R_upd, caps_upd, Qs, Qr, prod_rate,
+                                drain_ewma, dt, qcap, oc)
+    elif policy == "fixed":
+        x = torch.where(sim.has_links, x_fixed, INTERNAL_RATE)
+    elif policy == "appaware":
+        x = _appaware_rates(sim, R_upd, caps_upd, _flow_state(carry),
+                            dt * upd_every, solver=solver, per_link=per_link)
+    else:  # appfair
+        mu = ewma_throughput(mu, mu_acc / (dt * upd_every), alpha)
+        prio = group_by_throughput(mu, n_groups)
+        x = strict_priority_alloc(R_upd, caps_upd, sim.app_of_flow, prio,
+                                  n_groups=n_groups)
+        x = torch.where(sim.has_links, x, INTERNAL_RATE)
+    z = torch.zeros_like(Qs)
+    return ((Qs, Qr, B, x, z, Qs, B, prod_rate, drain_ewma, mu,
+             torch.zeros_like(mu_acc), oc), reb)
+
+
+def _advance(sim: CompiledSim, policy: str, carry, caps_t, R_t, enforce,
+             *, dt: float, qcap: float):
+    """One tick at the current rates. Returns ``(carry', (sink, sink_app,
+    wait, load))``; a policy that never reads prod_rate/B/mu_acc doesn't
+    pay their per-tick ops."""
+    (Qs, Qr, B, x, v_acc, ls, lr, prod_rate, drain_ewma, mu, mu_acc,
+     oc) = carry
+    Qs1, Qr1, transfer, drain, ys = _tick(
+        sim, Qs, Qr, x, dt, qcap, caps_t=caps_t, enforce=enforce, R_t=R_t)
+    if policy == "tcp":
+        t_in = sim.M_in @ transfer
+        out_i = sim.selectivity * t_in + sim.gen_rate * dt
+        prod_rate = out_i[sim.src_of_flow] * sim.w_of_flow / dt
+        drain_ewma = 0.5 * drain_ewma + 0.5 * drain
+    elif policy == "appaware":
+        B = torch.clamp(B + transfer - drain * dt, 0.0, 8.0 * qcap)
+        v_acc = v_acc + transfer
+    elif policy == "appfair":
+        mu_acc = mu_acc + ys[1]
+    return ((Qs1, Qr1, B, x, v_acc, ls, lr, prod_rate, drain_ewma, mu,
+             mu_acc, oc), ys)
+
+
 def _run(sim: CompiledSim, policy: str, n_ticks: int, dt: float,
          upd_every: int, x_fixed=None, alpha: float = 0.5, n_groups: int = 8,
-         qcap: float = 8.0, solver: str = "sort", t_event: float = 0.0):
-    """The tick loop. Returns device tensors ``(sink [T], sink_app [T, A],
-    latency [T], load [T, L], rebuilds [T], caps_sched [T|0, L], metrics)``.
+         qcap: float = 8.0, solver: str = "sort", enforce=None,
+         with_metrics: bool = True, t_event: float = 0.0):
+    """The tick loop of one sim. Returns device tensors ``(sink [T],
+    sink_app [T, A], wait [T, F], load [T, L], rebuilds [T], caps_sched
+    [T|0, L])`` and, with ``with_metrics``, the :data:`CAMPAIGN_METRICS`
+    vector after them. ``enforce`` (default True) gates the capacity
+    enforcement of a scheduled sim (see :func:`_tick`).
 
     Whether a tick updates the policy's rates is decided on the host from
     the tick counter alone; no value is read back from the device inside
     the loop."""
-    if policy not in ("tcp", "fixed", "appaware", "appfair"):
+    if policy not in POLICIES:
         raise ValueError(policy)
     dev = sim.device
     F, L = sim.R.shape
-    A = sim.n_apps
     f32 = torch.float32
-    z = torch.zeros((F,), dtype=f32, device=dev)
     dynamic = sim.is_dynamic
     rerouting = sim.is_rerouting
     # tick times in float32, like the event and route times they are
@@ -708,17 +808,13 @@ def _run(sim: CompiledSim, policy: str, n_ticks: int, dt: float,
     states_seq = _route_states_over(sim, ts) if rerouting else None
     if policy == "fixed":
         x_fixed = torch.as_tensor(x_fixed, dtype=f32, device=dev)
+    kw = dict(dt=dt, upd_every=upd_every, alpha=alpha, n_groups=n_groups,
+              qcap=qcap, solver=solver)
+    enforce = True if enforce is None else enforce
 
-    sink_out = torch.empty((n_ticks,), dtype=f32, device=dev)
-    sink_app_out = torch.empty((n_ticks, A), dtype=f32, device=dev)
-    wait_out = torch.empty((n_ticks, F), dtype=f32, device=dev)
-    load_out = torch.empty((n_ticks, L), dtype=f32, device=dev)
-    reb_out = torch.zeros((n_ticks,), dtype=torch.bool, device=dev)
-
-    Qs = Qr = B = x = v_acc = ls = lr = prod_rate = drain_ewma = z
-    mu = mu_acc = torch.zeros((A,), dtype=f32, device=dev)
-    oc = maxmin_order_init(F, device=dev) if policy == "tcp" else None
-
+    carry = _init_carry(policy, F, sim.n_apps, dev)
+    no_rebuild = torch.zeros((), dtype=torch.bool, device=dev)
+    ys_all, reb_all = [], []
     for tick in range(n_ticks):
         caps_t = caps_sched[tick] if dynamic else None
         caps_upd = sim.caps if caps_t is None else caps_t
@@ -726,55 +822,175 @@ def _run(sim: CompiledSim, policy: str, n_ticks: int, dt: float,
         R_t = (sim.route_bank.index_select(0, states_seq[tick:tick + 1])[0]
                if rerouting else None)
         R_upd = sim.R if R_t is None else R_t
-
+        reb = no_rebuild
         if tick % upd_every == 0:
-            if policy == "tcp":
-                x, oc, reb = _tcp_rates(sim, R_upd, caps_upd, Qs, Qr,
-                                        prod_rate, drain_ewma, dt, qcap, oc)
-                reb_out[tick] = reb
-            elif policy == "fixed":
-                x = torch.where(sim.has_links, x_fixed, INTERNAL_RATE)
-            elif policy == "appaware":
-                # the application profiler reports the *useful* receiver
-                # backlog B (bytes transferred but not yet joined)
-                st = FlowState(ls_t=ls, lr_t=lr, v=v_acc, ls_t1=Qs, lr_t1=B)
-                x = _appaware_rates(sim, R_upd, caps_upd, st, dt * upd_every,
-                                    solver=solver)
-            else:  # appfair
-                mu = ewma_throughput(mu, mu_acc / (dt * upd_every), alpha)
-                prio = group_by_throughput(mu, n_groups)
-                x = strict_priority_alloc(R_upd, caps_upd, sim.app_of_flow,
-                                          prio, n_groups=n_groups)
-                x = torch.where(sim.has_links, x, INTERNAL_RATE)
-            v_acc, ls, lr = z, Qs, B
-            mu_acc = torch.zeros_like(mu_acc)
-
-        Qs1, Qr1, transfer, drain, (sink, sink_app, wait, load) = _tick(
-            sim, Qs, Qr, x, dt, qcap, caps_t=caps_t, R_t=R_t)
-        sink_out[tick] = sink
-        sink_app_out[tick] = sink_app
-        wait_out[tick] = wait
-        load_out[tick] = load
-        # per-policy state: a policy that never reads prod_rate/B/mu_acc
-        # doesn't pay their per-tick ops
-        if policy == "tcp":
-            t_in = sim.M_in @ transfer
-            out_i = sim.selectivity * t_in + sim.gen_rate * dt
-            prod_rate = out_i[sim.src_of_flow] * sim.w_of_flow / dt
-            drain_ewma = 0.5 * drain_ewma + 0.5 * drain
-        elif policy == "appaware":
-            B = torch.clamp(B + transfer - drain * dt, 0.0, 8.0 * qcap)
-            v_acc = v_acc + transfer
-        elif policy == "appfair":
-            mu_acc = mu_acc + sink_app
-        Qs, Qr = Qs1, Qr1
-
+            carry, reb = _update(sim, policy, carry, R_upd, caps_upd,
+                                 x_fixed, **kw)
+        carry, ys = _advance(sim, policy, carry, caps_t, R_t, enforce,
+                             dt=dt, qcap=qcap)
+        ys_all.append(ys)
+        reb_all.append(reb)
+    sink, sink_app, wait, load = (torch.stack(c) for c in zip(*ys_all))
+    out = (sink, sink_app, wait, load, torch.stack(reb_all), caps_sched)
+    if not with_metrics:
+        return out
     caps_grid = caps_sched if dynamic else sim.caps[None, :].expand(n_ticks, L)
-    metrics = _metrics_epilogue(sink_out, wait_out, load_out, caps_grid,
-                                sim.path_w, dt, t_event)
-    latency = wait_out @ sim.path_w
-    return (sink_out, sink_app_out, latency, load_out, reb_out, caps_sched,
-            metrics)
+    return out + (_metrics_epilogue(sink, wait, load, caps_grid, sim.path_w,
+                                    dt, t_event),)
+
+
+def _run_bucket(pack: "dict[str, torch.Tensor]", n_apps: int, policy: str,
+                n_ticks: int, dt: float, upd_every: int, x_fixed=None,
+                alpha: float = 0.5, n_groups: int = 8, qcap: float = 8.0,
+                solver: str = "sort", enforce=None,
+                with_metrics: bool = True, t_event: float = 0.0,
+                stepwise: bool = False):
+    """The tick loop of a fleet bucket: ``pack`` holds every
+    :data:`DATA_FIELDS` tensor with a leading scenario axis [B, ...] (one
+    padded shape, see ``repro_torch.streams.fleet``); ``x_fixed`` is [B, F]
+    for the fixed policy and ``enforce`` a [B] bool gate (default: every
+    row enforces its schedule). Returns what :func:`_run` returns, each
+    tensor with the scenario axis first.
+
+    A host loop over ticks, as in :func:`_run`, whose update and advance
+    steps run under ``torch.func.vmap`` over the bucket: each tick issues
+    the same launches as one sim's tick, each over B scenarios. Appaware
+    with ``solver="waterfill"`` solves every link of every scenario in one
+    launch of the waterfill kernel per update (B·L blocks) between two
+    vmapped halves of the update.
+
+    ``stepwise=True`` returns the loop as a generator that yields once per
+    tick and returns the outputs, so a caller can interleave the ticks of
+    several buckets in one host loop."""
+    if policy not in POLICIES:
+        raise ValueError(policy)
+    loop = _bucket_ticks(pack, n_apps, policy, n_ticks, dt, upd_every,
+                         x_fixed, alpha, n_groups, qcap, solver, enforce,
+                         with_metrics, t_event)
+    if stepwise:
+        return loop
+    while True:
+        try:
+            next(loop)
+        except StopIteration as stop:
+            return stop.value
+
+
+def _bucket_ticks(pack, n_apps, policy, n_ticks, dt, upd_every, x_fixed,
+                  alpha, n_groups, qcap, solver, enforce, with_metrics,
+                  t_event):
+    from torch.func import vmap
+
+    R = pack["R"]
+    Bn, F, L = R.shape
+    dev = R.device
+    f32 = torch.float32
+    dynamic = pack["sin_amp"].shape[1] > 0 or pack["ev_t0"].shape[1] > 0
+    rerouting = pack["route_bank"].shape[1] > 0
+    ts = torch.arange(n_ticks, dtype=f32, device=dev) * dt
+    if enforce is None:
+        enforce = torch.ones((Bn,), dtype=torch.bool, device=dev)
+
+    def sim_of(f: dict):
+        return CompiledSim(tuples_per_mb=1.0, n_apps=n_apps,
+                           **{k: f.get(k) for k in DATA_FIELDS})
+
+    caps_sched = (vmap(lambda f: _caps_over(sim_of(f), ts))(
+        {k: pack[k] for k in ("caps", "sin_amp", "sin_omega", "sin_phase",
+                              "ev_t0", "ev_t1", "ev_link", "ev_scale")})
+        if dynamic else torch.zeros((Bn, 0, L), dtype=f32, device=dev))
+    states_seq = (vmap(lambda f: _route_states_over(sim_of(f), ts))(
+        {k: pack[k] for k in ("route_t", "route_state")})
+        if rerouting else None)
+    step = {k: pack[k] for k in STEP_FIELDS}
+    kw = dict(dt=dt, upd_every=upd_every, alpha=alpha, n_groups=n_groups,
+              qcap=qcap, solver=solver)
+    rows = torch.arange(Bn, device=dev)
+    waterfill = policy == "appaware" and solver == "waterfill"
+
+    def update(f, c, R_upd, caps_upd, xf, per_link):
+        return _update(sim_of(f), policy, c, R_upd, caps_upd, xf,
+                       per_link=per_link, **kw)
+
+    def wf_args(f, c, R_upd, caps_upd):
+        from repro_torch.core.allocator import waterfill_args
+        return waterfill_args(sim_of(f).program_at(caps_upd, R=R_upd),
+                              _flow_state(c), dt * upd_every)
+
+    def advance(f, c, caps_t, R_t, en):
+        return _advance(sim_of(f), policy, c, caps_t, R_t, en, dt=dt,
+                        qcap=qcap)
+
+    v_update = vmap(update, in_dims=(0, 0, 0, 0,
+                                     None if x_fixed is None else 0,
+                                     0 if waterfill else None))
+    v_wf_args = vmap(wf_args)
+    dyn = 0 if dynamic else None
+    v_advance = vmap(advance, in_dims=(0, 0, dyn, 0 if rerouting else None,
+                                       dyn))
+
+    carry = tuple(
+        tuple(t.expand(Bn, *t.shape).contiguous() for t in c)
+        if isinstance(c, tuple) else c.expand(Bn, *c.shape).contiguous()
+        for c in _init_carry(policy, F, n_apps, dev))
+    no_rebuild = torch.zeros((Bn,), dtype=torch.bool, device=dev)
+    ys_all, reb_all = [], []
+    for tick in range(n_ticks):
+        caps_t = caps_sched[:, tick] if dynamic else None
+        caps_upd = pack["caps"] if caps_t is None else caps_t
+        R_t = (pack["route_bank"][rows, states_seq[:, tick]] if rerouting
+               else None)
+        R_upd = R if R_t is None else R_t
+        reb = no_rebuild
+        if tick % upd_every == 0:
+            per_link = None
+            if waterfill:
+                from repro_torch.kernels.waterfill.ops import waterfill_fleet
+                args = v_wf_args(step, carry, R_upd, caps_upd)
+                per_link = waterfill_fleet(
+                    *(a.contiguous() for a in args), dt=dt * upd_every)
+            carry, reb = v_update(step, carry, R_upd, caps_upd, x_fixed,
+                                  per_link)
+        carry, ys = v_advance(step, carry, caps_t, R_t,
+                              enforce if dynamic else None)
+        ys_all.append(ys)
+        reb_all.append(reb)
+        yield
+    sink, sink_app, wait, load = (torch.stack(c, 1) for c in zip(*ys_all))
+    out = (sink, sink_app, wait, load, torch.stack(reb_all, 1), caps_sched)
+    if not with_metrics:
+        return out
+    caps_grid = (caps_sched if dynamic
+                 else pack["caps"][:, None, :].expand(Bn, n_ticks, L))
+    metrics = vmap(lambda *a: _metrics_epilogue(*a, dt, t_event))(
+        sink, wait, load, caps_grid, pack["path_w"])
+    return out + (metrics,)
+
+
+def result_from_padded_row(sim: CompiledSim, b: int, dt: float,
+                           sink, sink_app, wait, load, rebuilds,
+                           caps_sched, metrics) -> SimResult:
+    """Slice row ``b`` of a padded bucket's host-side (numpy) outputs back
+    to ``sim``'s true shapes — the one definition of a scenario's
+    :class:`SimResult`, shared by :func:`simulate` (a bucket of one row),
+    the fleet and the campaign collector. The path-mean latency is taken
+    on the true [F] slice, so it does not depend on the bucket's padding."""
+    F, L = sim.R.shape
+    A = sim.n_apps
+    path_w = sim.path_w.cpu().numpy()
+    return SimResult(
+        sink_mb=sink[b],
+        sink_mb_app=sink_app[b][:, :A],
+        latency=wait[b][:, :F] @ path_w,
+        link_load=load[b][:, :L],
+        caps=sim.caps.cpu().numpy(),
+        kinds=sim.kinds.cpu().numpy(),
+        tuples_per_mb=sim.tuples_per_mb,
+        dt=dt,
+        caps_t=caps_sched[b][:, :L] if sim.is_dynamic else None,
+        order_rebuilds=rebuilds[b],
+        metrics=None if metrics is None else metrics[b],
+    )
 
 
 def smoke_seconds(seconds: float, cap: float = 120.0) -> float:
@@ -814,22 +1030,8 @@ def simulate(
         sim = sim.to(dev)
     n_ticks = int(round(smoke_seconds(seconds) / dt))
     upd_every = resolve_upd_every(policy, dt, upd_every)
-    sink, sink_app, latency, load, rebuilds, caps_sched, metrics = _run(
-        sim, policy, n_ticks, dt, upd_every, x_fixed=x_fixed, alpha=alpha,
-        n_groups=n_groups, qcap=qcap, solver=solver, t_event=float(t_event))
-    def host(t: torch.Tensor) -> np.ndarray:
-        return t.cpu().numpy()
-
-    return SimResult(
-        sink_mb=host(sink),
-        sink_mb_app=host(sink_app),
-        latency=host(latency),
-        link_load=host(load),
-        caps=host(sim.caps),
-        kinds=host(sim.kinds),
-        tuples_per_mb=sim.tuples_per_mb,
-        dt=dt,
-        caps_t=host(caps_sched) if sim.is_dynamic else None,
-        order_rebuilds=host(rebuilds),
-        metrics=host(metrics),
-    )
+    outs = _run(sim, policy, n_ticks, dt, upd_every, x_fixed=x_fixed,
+                alpha=alpha, n_groups=n_groups, qcap=qcap, solver=solver,
+                t_event=float(t_event))
+    return result_from_padded_row(sim, 0, dt,
+                                  *(t.cpu().numpy()[None] for t in outs))

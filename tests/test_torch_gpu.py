@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA device: the waterfill, flash-attention
-and SSD chunk kernels against their plain versions, the simulator's main
-path and a reduced zamba2 serve on the card against the same runs on the
-CPU. They import no JAX, so they run on a machine that has
-only PyTorch:
+and SSD chunk kernels against their plain versions (waterfill also in its
+fleet layout), the simulator's main path, a fleet run and a reduced zamba2
+serve on the card against the same runs on the CPU, and a faulted and
+resumed campaign on the card. They import no JAX, so they run on a machine
+that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -380,3 +381,102 @@ def test_serve_on_card_matches_cpu():
     lc, _ = lm.prefill(cfg, model, toks.cuda(), 96)
     lp, _ = lm.prefill(cfg, cpu_model, toks, 96)
     assert float((lc.cpu() - lp).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("B,L,F,p", [
+    (3, 16, 17, 0.3),         # a paper-grid bucket
+    (256, 16, 17, 0.2),       # a campaign chunk
+    (4_100, 16, 40, 0.1),     # B·L = 65,600 blocks, past 65,535
+])
+def test_waterfill_fleet_matches_plain(B, L, F, p):
+    """One launch of B·L blocks against the plain version at max|Δ| ≤
+    1e-4·max(cap), and each scenario's slice bit for bit equal to
+    ``waterfill_flows`` on that scenario alone (the group stride reads the
+    right flow row)."""
+    dev = _cuda()
+    rng = np.random.default_rng(B + L + F)
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=dev)
+    w, bl, rho = (t(rng.uniform(lo, hi, (B, F)).astype(np.float32))
+                  for lo, hi in ((0, 20), (0, 30), (0.1, 10)))
+    mask = t((rng.random((B, L, F)) < p).astype(np.float32))
+    cap = t(rng.uniform(1, 50, (B, L)).astype(np.float32))
+    kind = t(rng.integers(0, 2, (B, L)), torch.int32)
+    before = ops.LAUNCHES
+    out = ops.waterfill_fleet(w, bl, rho, mask, cap, kind, dt=5.0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    plain = ops.waterfill_fleet(*(a.cpu() for a in (w, bl, rho, mask, cap,
+                                                     kind)), dt=5.0)
+    assert float((out.cpu() - plain).abs().max()) <= 1e-4 * float(cap.max())
+    for b in {0, B // 2, B - 1}:
+        one = ops.waterfill_flows(w[b], bl[b], rho[b], mask[b], cap[b],
+                                  kind[b], dt=5.0)
+        assert torch.equal(out[b], one)
+
+
+def test_fleet_bucket_on_card_matches_cpu():
+    """A fleet run on the card against the same run on the CPU (plain
+    waterfill there): tcp and appaware through the kernel, 20 s, at the
+    fleet tests' tolerances; appaware makes one waterfill launch per bucket
+    update."""
+    from repro_torch.streams import FleetRunner, compile_fleet, seed_fleet
+
+    dev = _cuda()
+    sims = compile_fleet(seed_fleet(seed=0)[:8], device="cpu")
+    card = FleetRunner(device=dev, tick_overhead=15e3)
+    host = FleetRunner(device="cpu", tick_overhead=15e3)
+    for policy, solver in (("tcp", "sort"), ("appaware", "waterfill")):
+        before = ops.LAUNCHES
+        got = card.run(sims, policy, seconds=20.0, solver=solver)
+        launched = ops.LAUNCHES - before
+        want = host.run(sims, policy, seconds=20.0, solver=solver)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.sink_mb, w.sink_mb, atol=1e-4)
+            np.testing.assert_allclose(g.latency, w.latency, rtol=1e-4,
+                                       atol=1e-3)
+            np.testing.assert_allclose(g.link_load, w.link_load, atol=1e-4)
+        if solver == "waterfill":
+            assert launched == card.last_stats["n_buckets"] * 4  # 40 ticks
+        else:
+            assert launched == 0
+
+
+def test_faulted_campaign_on_card(tmp_path):
+    """The campaign on the card: a transient transfer fault and a poisoned
+    scenario leave every other row bit for bit equal to the fault-free
+    campaign, exactly the poisoned scenario is quarantined, and a killed
+    campaign resumes from its checkpoint running only what was not done."""
+    from repro_torch.streams import (FaultAbort, FaultPlan, FaultSpec,
+                                     FleetRunner, campaign_fleet,
+                                     compile_fleet)
+
+    dev = _cuda()
+    sims = compile_fleet(campaign_fleet(48, seed=0), device="cpu")
+    runner = FleetRunner(device=dev)
+    kw = dict(seconds=6.0, chunk_rows=8, retry_backoff_s=0.001,
+              retry_backoff_cap_s=0.01)
+    clean = runner.run_campaign(sims, "appaware", solver="waterfill",
+                                **kw).metrics.copy()
+    n_chunks = runner.last_stats["n_chunks"]
+    fp = FaultPlan([FaultSpec("transfer", chunk=1, times=1)], poison={9})
+    cr = runner.run_campaign(sims, "appaware", solver="waterfill", faults=fp,
+                             **kw)
+    assert runner.last_stats["status"] == "ok"
+    assert cr.quarantined.tolist() == [9]
+    ok = np.arange(len(sims)) != 9
+    np.testing.assert_array_equal(cr.metrics[ok], clean[ok])
+    ck = str(tmp_path / "ck")
+    with pytest.raises(FaultAbort):
+        runner.run_campaign(sims, "appaware", solver="waterfill",
+                            checkpoint=ck,
+                            faults=FaultPlan([FaultSpec("abort",
+                                                        chunk=n_chunks - 1)]),
+                            **kw)
+    done = runner.last_stats["n_chunks_done"]
+    assert 0 < done < n_chunks
+    cr = runner.run_campaign(sims, "appaware", solver="waterfill",
+                             checkpoint=ck, **kw)
+    assert runner.last_stats["n_dispatches"] == n_chunks - done
+    np.testing.assert_array_equal(cr.metrics, clean)

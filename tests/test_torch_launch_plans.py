@@ -181,3 +181,57 @@ def test_streamed_rows_are_those_over_budget(budget):
 def test_list_budget_rejects_negative():
     with pytest.raises(ValueError, match=">= 0"):
         wf.list_smem_bytes(-1)
+
+
+# ---- waterfill: the fleet launch's grid and group stride ---------------------
+@pytest.mark.parametrize("B,L,F", [(1, 16, 17), (256, 16, 17), (4_100, 16, 40)])
+def test_fleet_plan_one_block_per_link_row(B, L, F):
+    # one launch of B·L blocks; block l reads flow row l // L: offset
+    # (l // L)·F with no per-link stride
+    plan = wf.launch_plan(B * L, F, flow_stride=0, links_per_group=L)
+    assert plan["grid"] == B * L and plan["threads"] == 256
+    assert (plan["flow_stride"], plan["links_per_group"],
+            plan["group_stride"]) == (0, L, F)
+    assert plan["smem_bytes"] == wf.list_smem_bytes()
+    offset = lambda l: ((l // plan["links_per_group"]) * plan["group_stride"]
+                        + l * plan["flow_stride"])
+    assert [offset(l) for l in (0, L - 1, L, B * L - 1)] == [
+        0, 0, F, (B - 1) * F]
+
+
+@pytest.mark.parametrize("flow_stride", [0, 1037])
+def test_legacy_layouts_have_no_groups(flow_stride):
+    # links_per_group = 0: the shared row (stride 0) and dense rows (F)
+    plan = wf.launch_plan(300, 1037, flow_stride)
+    assert plan["grid"] == 300
+    assert (plan["links_per_group"], plan["group_stride"]) == (0, 0)
+    assert plan["flow_stride"] == flow_stride
+
+
+def test_fleet_plan_rejects_partial_groups():
+    with pytest.raises(ValueError, match="whole groups"):
+        wf.launch_plan(33, 17, 0, links_per_group=16)
+    with pytest.raises(ValueError, match="links_per_group"):
+        wf.launch_plan(32, 17, 0, links_per_group=-1)
+
+
+def test_group_stride_matches_the_kernel_source():
+    src = wf.SOURCE.read_text()
+    assert ("(links_per_group > 0 ? (l / links_per_group) * group_stride : 0)"
+            in src)
+    assert "l * flow_stride" in src
+
+
+def test_fleet_plain_version_equals_per_scenario_solves():
+    # the CPU path of waterfill_fleet: each scenario's slice is its own
+    # waterfill_flows solve, bit for bit
+    g = torch.Generator().manual_seed(0)
+    B, L, F = 3, 5, 11
+    w, bl, rho = (torch.rand(B, F, generator=g) * 5 for _ in range(3))
+    mask = (torch.rand(B, L, F, generator=g) < 0.5).float()
+    cap = torch.rand(B, L, generator=g) * 10 + 1
+    kind = (torch.rand(B, L, generator=g) < 0.5).to(torch.int32)
+    out = wf.waterfill_fleet(w, bl, rho, mask, cap, kind, dt=5.0)
+    for b in range(B):
+        assert torch.equal(out[b], wf.waterfill_flows(
+            w[b], bl[b], rho[b], mask[b], cap[b], kind[b], dt=5.0))

@@ -1,11 +1,18 @@
 """Where the time goes in the PyTorch port, on one CUDA card.
 
-    python3 tools/port_profile.py
+    python3 tools/port_profile.py [sim] [fleet] [serve]
+
+(no argument: all three parts).
 
 Simulation: for the paper-grid cell (TT on big_switch(8, 1.25)) and the
 datacenter cell (TT at 64-way parallelism on a 256-machine fat-tree, as in
 chip_smoke.py), and for tcp and appaware (solver="waterfill"): a warm-up
 30 s simulation (60 ticks), a timed one, and one under torch.profiler.
+
+Fleet: ``bench_fleet()`` (44 scenarios) through one ``FleetRunner`` for
+tcp and appaware (solver="waterfill"), 30 s, per fleet tick (one tick of
+every bucket); and a campaign of ``campaign_fleet(1024)`` in chunks of 256
+rows, appaware through the kernel, per chunk tick (one tick of one chunk).
 
 Serving: zamba2-1.2b at full width (bf16, random weights from a seed), one
 wave of chip_smoke.py's serving run: the prefill of 4 × 512 tokens, and 8
@@ -102,6 +109,33 @@ def _serve(n_decode: int = 8) -> None:
             n_decode, "step")
 
 
+def _fleet() -> None:
+    from repro_torch.streams import (FleetRunner, bench_fleet,
+                                     campaign_fleet, compile_fleet)
+
+    n_ticks = int(SECONDS / DT)
+    runner = FleetRunner()
+    sims = compile_fleet(bench_fleet(), device="cpu")
+    for policy, solver in (("tcp", "sort"), ("appaware", "waterfill")):
+        def run():
+            runner.run(sims, policy, seconds=SECONDS, dt=DT, solver=solver)
+        run()
+        st = runner.last_stats
+        _report(f"fleet bench_fleet [{len(sims)} scenarios, "
+                f"{st['n_buckets']} buckets, rows {st['rows']}] "
+                f"{policy}/{solver}", run, n_ticks, "fleet tick")
+    camp = compile_fleet(campaign_fleet(1024), device="cpu")
+
+    def campaign():
+        runner.run_campaign(camp, "appaware", seconds=SECONDS, dt=DT,
+                            solver="waterfill", chunk_rows=256)
+    campaign()
+    st = runner.last_stats
+    _report(f"campaign [{len(camp)} scenarios, {st['n_chunks']} chunks, "
+            f"rows {st['rows']}] appaware/waterfill", campaign,
+            st["n_chunks"] * n_ticks, "chunk tick")
+
+
 def main() -> int:
     import torch
 
@@ -114,14 +148,25 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    parts = sys.argv[1:] or ["sim", "fleet", "serve"]
+    unknown = set(parts) - {"sim", "fleet", "serve"}
+    if unknown:
+        print(f"port_profile: unknown parts {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
     n_ticks = int(SECONDS / DT)
-    for cell, sim in _cells():
-        F, L = sim.R.shape
-        for policy, solver in (("tcp", "sort"), ("appaware", "waterfill")):
-            _report(f"{cell} [{F} flows x {L} links] {policy}/{solver}",
-                    lambda: simulate(sim, policy, seconds=SECONDS, dt=DT,
-                                     solver=solver), n_ticks, "tick")
-    _serve()
+    if "sim" in parts:
+        for cell, sim in _cells():
+            F, L = sim.R.shape
+            for policy, solver in (("tcp", "sort"),
+                                   ("appaware", "waterfill")):
+                _report(f"{cell} [{F} flows x {L} links] {policy}/{solver}",
+                        lambda: simulate(sim, policy, seconds=SECONDS, dt=DT,
+                                         solver=solver), n_ticks, "tick")
+    if "fleet" in parts:
+        _fleet()
+    if "serve" in parts:
+        _serve()
     return 0
 
 
