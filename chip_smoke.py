@@ -36,7 +36,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    serving shapes (flash: B 4, H = K = 32, S = T = 512, hd 64, float32 and
    bfloat16; SSD chunk: BH 4·64, 4 chunks of 128, P 64, N 64), plus GQA
    (H 8, K 2 float32; H 32, K 8 bfloat16), hd 128 (both), a ragged S
-   (300, float32 and bfloat16) and mamba2-370m's N = 128: max |Δ| ≤ 2e-5
+   (300, float32 and bfloat16), yi-6b's prefill launch (H 32, K 4, hd 128,
+   bfloat16) and mamba2-370m's N = 128: max |Δ| ≤ 2e-5
    (flash float32), 2e-2 (flash bfloat16), 1e-4 (SSD), the JAX tests' own
    tolerances; prints each kernel's time (as in phase 3), its plain
    version's, SDPA's for flash (a CUDA graph too), and the bound (float32
@@ -84,7 +85,21 @@ Phases, each of which makes the script exit non-zero when it fails:
     quarantine exactly the poisoned scenario; a ``FaultAbort`` kills a
     checkpointed run, and the resumed run (checkpoint in a temporary
     directory) runs only the chunks that were not done and equals the
-    fault-free run bit for bit.
+    fault-free run bit for bit;
+12. serving yi-6b at full width, all 32 layers (6,061,035,520 parameters,
+    the JAX count), bfloat16, random weights from a fixed seed: the same
+    requests, slots and timings as phase 8; every logit finite, every
+    request gets 32 tokens, and flash attention launches exactly 64 times
+    (32 layers per wave) and the SSD chunk kernel never. This is the dense
+    main-path run. Then yi-6b at full width cut to 2 layers, float32, B 2,
+    S 128: card (kernels; the float32 flash kernel at hd 128) against CPU
+    (plain versions) within 1e-5·max|logits|, as in phase 8;
+13. the port's examples on the card: ``port_multiapp_fairness`` (App-Fair's
+    Jain ≥ 0.98 for every α, TCP's within 1e-3 of 0.818), the paper's
+    oracles (``maxmin_rates``, ``demand_limited_maxmin``,
+    ``tcp_app_throughput``, ``AppFairScheduler``) on CUDA tensors against
+    ``demand_limited_maxmin_np``, ``port_dynamic_failure`` within 1% of the
+    JAX example's throughputs, and ``port_serve_decode`` at ``reduced()``.
 
 Before its last line the script prints one JSON object describing each
 kernel, then the card's name and power limit; the last line is
@@ -467,7 +482,7 @@ def main() -> int:
 
     # ---- 8. serve zamba2-1.2b at full width (the LM main-path run) ------
     launches = phase_serve(dev)
-    phase_numeric_7layer(dev)
+    phase_numeric(dev, "zamba2-1.2b", n_layers=7, B=2, S=256, seed=1)
     lap("8 (serving)")
 
     # ---- 9-11. fleet, campaign, resilience ------------------------------
@@ -477,6 +492,16 @@ def main() -> int:
     lap("10 (campaign)")
     phase_resilience(dev)
     lap("11 (resilience)")
+
+    # ---- 12. serve yi-6b at full width (the dense main-path run) --------
+    yi_launches = phase_serve(dev, "yi-6b", n_params=YI6B_PARAMS)
+    lap("12 (serving yi-6b)")
+    phase_numeric(dev, "yi-6b", n_layers=2, B=2, S=128, seed=2)
+    lap("12b (yi-6b numeric)")
+
+    # ---- 13. the port's examples and the paper's oracles on the card ----
+    phase_examples(dev)
+    lap("13 (examples)")
 
     main = results["datacenter"]["shared"]
     kernels = [{
@@ -502,6 +527,7 @@ def main() -> int:
         "fleet_bound_ms": camp["bound_ms"],
         "fleet_bound_by": camp["bound_by"],
     }]
+    yi6b = flash["yi6b"]
     for name, src, rep, res, lib_ms in (
             ("flash_attention",
              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -515,6 +541,16 @@ def main() -> int:
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": lib_ms})
+    # yi-6b's main path (phase 12) and the kernel at its launch shape
+    # (phase 7)
+    kernels[1].update({
+        "yi6b_launches": yi_launches["flash_attention"],
+        "yi6b_shape": yi6b["shape"],
+        "yi6b_ms": yi6b["ms"],
+        "yi6b_plain_ms": yi6b["plain_ms"],
+        "yi6b_bound_ms": yi6b["bound_ms"],
+        "yi6b_library_ms": yi6b["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -852,6 +888,12 @@ def ssd_bound_ms(BH, nc, Q, P, N, Bsz):
             bound(n_bytes, ops_per_head, PEAK_F32_S)[0])
 
 
+# phase 7's row at yi-6b's prefill launch shape
+YI6B_FLASH = "yi-6b GQA H32/K4 hd128 bf16"
+# JAX ``get_model(get_config("yi-6b")).count_params()``
+YI6B_PARAMS = 6_061_035_520
+
+
 # the LM path's kernels, each of which must issue HGMMA (phase 6)
 TENSOR_CORE_KERNELS = ("flash_bf16_kernel", "flash_f32_kernel",
                        "ssd_chunk_kernel")
@@ -893,7 +935,7 @@ def phase_flash(dev) -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_plain
 
     g = torch.Generator(device=dev).manual_seed(0)
-    worst, timed = 0.0, {}
+    worst, timed, yi6b = 0.0, {}, {}
     for label, (B, S, H, K, hd), dtype, tol in (
             ("serving f32", (SERVE_B, SERVE_S, 32, 32, 64), torch.float32,
              2e-5),
@@ -909,6 +951,9 @@ def phase_flash(dev) -> dict:
             ("hd128 bf16", (SERVE_B, SERVE_S, 16, 16, 128), torch.bfloat16,
              2e-2),
             ("ragged S300 bf16", (SERVE_B, 300, 32, 32, 64), torch.bfloat16,
+             2e-2),
+            # yi-6b's prefill launch shape (phase 12): G 8 at hd 128
+            (YI6B_FLASH, (SERVE_B, SERVE_S, 32, 4, 128), torch.bfloat16,
              2e-2)):
         q = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
         k = torch.randn(B, S, K, hd, generator=g, device=dev).to(dtype)
@@ -942,7 +987,11 @@ def phase_flash(dev) -> dict:
         if label == "serving bf16":
             timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=lib_ms)
-    return dict(timed, max_abs_err=worst)
+        if label == YI6B_FLASH:
+            yi6b = dict(shape=f"B{B} S{S} H{H} K{K} hd{hd} bf16", ms=ms,
+                        eager_ms=eager_ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, library_ms=lib_ms)
+    return dict(timed, max_abs_err=worst, yi6b=yi6b)
 
 
 def phase_ssd(dev) -> dict:
@@ -994,9 +1043,12 @@ def phase_ssd(dev) -> dict:
     return dict(timed, max_abs_err=worst)
 
 
-def phase_serve(dev) -> dict:
-    """zamba2-1.2b at full width through ServeEngine; returns the kernel
-    launches of this run."""
+def phase_serve(dev, arch: str = "zamba2-1.2b",
+                n_params: int | None = None) -> dict:
+    """``arch`` at full width through ServeEngine; returns the kernel
+    launches of this run. A hybrid launches flash once per shared-block
+    application and the SSD chunk kernel once per Mamba2 layer, a dense
+    model flash once per layer, per wave."""
     import numpy as np
     import torch
 
@@ -1005,12 +1057,15 @@ def phase_serve(dev) -> dict:
     from repro_torch.models.registry import get_config, get_model
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_config("zamba2-1.2b")
+    cfg = get_config(arch)
     api = get_model(cfg, device=dev)
+    if n_params is not None:
+        check(api.count_params() == n_params,
+              f"serve {arch}: {api.count_params()} parameters != {n_params}")
     t0 = time.perf_counter()
     model = api.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    print(f"serve: zamba2-1.2b, {api.count_params():,} parameters, "
+    print(f"serve: {arch}, {api.count_params():,} parameters, "
           f"{str(cfg.dtype)[6:]}, initialised on the card in "
           f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
@@ -1043,16 +1098,18 @@ def phase_serve(dev) -> dict:
           f"ssd_chunk {launches['ssd_chunk']}; peak device memory "
           f"{peak / 2**30:.3f} GiB")
     check(all(len(r.out) == SERVE_NEW for r in reqs),
-          f"serve: every request got {SERVE_NEW} tokens")
-    check(bool(finite), "serve: every logit finite")
+          f"serve {arch}: every request got {SERVE_NEW} tokens")
+    check(bool(finite), f"serve {arch}: every logit finite")
     n_waves = SERVE_REQS // SERVE_B
-    groups = cfg.n_layers // cfg.hybrid_attn_every
-    check(launches["flash_attention"] == n_waves * groups,
-          f"serve: flash launches {launches['flash_attention']} != "
-          f"{n_waves * groups}")
-    check(launches["ssd_chunk"] == n_waves * cfg.n_layers,
-          f"serve: ssd_chunk launches {launches['ssd_chunk']} != "
-          f"{n_waves * cfg.n_layers}")
+    if cfg.family == "hybrid":
+        want = {"flash_attention": n_waves * (cfg.n_layers
+                                              // cfg.hybrid_attn_every),
+                "ssd_chunk": n_waves * cfg.n_layers}
+    else:
+        want = {"flash_attention": n_waves * cfg.n_layers, "ssd_chunk": 0}
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"serve {arch}: {name} launches {launches[name]} != {n}")
 
     # per-phase device times for one wave (outside the counted run)
     toks = torch.as_tensor(prompts[:SERVE_B], dtype=torch.long, device=dev)
@@ -1080,29 +1137,35 @@ def phase_serve(dev) -> dict:
     return launches
 
 
-def phase_numeric_7layer(dev) -> None:
-    """zamba2-1.2b at full width cut to 7 layers, float32: the card
-    (kernels) against the CPU (plain versions), same weights."""
+def phase_numeric(dev, arch: str, n_layers: int, B: int, S: int,
+                  seed: int) -> None:
+    """``arch`` at full width cut to ``n_layers`` layers, float32: the card
+    (kernels) against the CPU (plain versions), same weights: prefill
+    logits and 4 decode steps within ``NUMERIC_RTOL``·max|logits|."""
     import copy
     import dataclasses
 
     import numpy as np
     import torch
 
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import lm
     from repro_torch.models.registry import get_config, get_model
 
-    cfg = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=7,
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
                               dtype=torch.float32)
+    label = f"{arch} full width, {n_layers} layers"
     api = get_model(cfg, device=dev)
-    model = api.init(torch.Generator(device=dev).manual_seed(1))
+    model = api.init(torch.Generator(device=dev).manual_seed(seed))
     cpu_model = copy.deepcopy(model).cpu()
-    rng = np.random.default_rng(1)
-    B, S, steps = 2, 256, 4
+    rng = np.random.default_rng(seed)
+    steps = 4
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S + steps)),
                            dtype=torch.long)
     t0 = time.perf_counter()
+    before = fa.LAUNCHES
     lg, cache = lm.prefill(cfg, model, toks[:, :S].to(dev), S + steps)
+    flash = fa.LAUNCHES - before
     lc, ccache = lm.prefill(cfg, cpu_model, toks[:, :S], S + steps)
     pairs = [(lg.cpu(), lc)]
     for i in range(S, S + steps):
@@ -1115,13 +1178,181 @@ def phase_numeric_7layer(dev) -> None:
         scale = float(b.abs().max())
         err = float((a - b).abs().max())
         what = "prefill" if n == 0 else f"decode step {n}"
-        check(bool(torch.isfinite(a).all()), f"7-layer {what}: finite")
-        check(err <= NUMERIC_RTOL * scale, f"7-layer {what}: max|Δ| {err} > "
+        check(bool(torch.isfinite(a).all()), f"{label} {what}: finite")
+        check(err <= NUMERIC_RTOL * scale, f"{label} {what}: max|Δ| {err} > "
                                            f"{NUMERIC_RTOL} x {scale}")
-        print(f"numeric: zamba2-1.2b full width, 7 layers, f32, B{B} S{S}, "
+        print(f"numeric: {label}, f32, B{B} S{S}, "
               f"{what}: card vs CPU max|Δ| {err:.3e} (max|logit| "
               f"{scale:.3e}, tol {NUMERIC_RTOL}x)")
-    print(f"numeric: done in {time.perf_counter() - t0:.2f} s")
+    print(f"numeric: {label}: float32 flash launches in the card's prefill "
+          f"{flash}; done in {time.perf_counter() - t0:.2f} s")
+    check(flash > 0, f"{label}: the card's prefill launched no flash kernel")
+    del model, cpu_model, cache, ccache
+    torch.cuda.empty_cache()
+
+
+# ---- the port's examples and the paper's oracles (phase 13) --------------
+# JAX reference (examples/dynamic_failure.py, 120 s): throughput, post-event
+# throughput (tuples/s), dip depth, recovery s
+GOLDEN_DYNAMIC = {"tcp": (38.51171875, 35.76088333129883, 0.8985969798325554,
+                          23.0),
+                  "appaware": (50.0, 46.42857360839844, 0.9876895345792953,
+                               26.5)}
+ORACLE_TOL = dict(rtol=1e-5, atol=1e-4)   # the JAX tests' oracle tolerances
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts, not a
+    package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def oracle_instance(rng, F: int, L: int):
+    """A random routing (0-3 links per flow, so some flows are off-net), a
+    zero-capacity link, a zero demand and tied demands."""
+    import numpy as np
+
+    R = np.zeros((F, L), np.float32)
+    for f in range(F):
+        k = int(rng.integers(0, min(L, 3) + 1))
+        if k:
+            R[f, rng.choice(L, k, replace=False)] = 1.0
+    cap = rng.uniform(0.5, 20.0, L).astype(np.float32)
+    cap[rng.integers(0, L)] = 0.0
+    d = rng.uniform(0.0, 10.0, F).astype(np.float32)
+    d[rng.integers(0, F)] = 0.0
+    d[rng.integers(0, F, 3)] = d[1]
+    return R, cap, d
+
+
+def phase_oracles(dev) -> None:
+    """``maxmin_rates``, ``demand_limited_maxmin``, ``tcp_app_throughput``
+    and ``AppFairScheduler`` (one group, on single-link routes: its
+    fixed-trip fill is exact where the bottleneck chain is shallow) on the
+    card against the port's sequential numpy reference
+    ``demand_limited_maxmin_np``, at the JAX tests' oracle tolerances; the
+    per-app sums and an App-Fair step give the same bits
+    on every call; 60 App-Fair steps on the card against the same steps on
+    the CPU (the CPU's per-app throughputs fed to both) give the same
+    priorities and rates within 1e-5."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (AppFairScheduler, demand_limited_maxmin,
+                                  demand_limited_maxmin_np, maxmin_rates)
+    from repro_torch.core.multiapp import tcp_app_throughput
+
+    rng = np.random.default_rng(3)
+    worst = 0.0
+    n_inst, A = 8, 4
+
+    def close(got, want, what, atol=ORACLE_TOL["atol"]):
+        nonlocal worst
+        err = np.abs(got - want)
+        worst = max(worst, float(err.max(initial=0.0)))
+        check(bool(np.all(err <= atol + ORACLE_TOL["rtol"] * np.abs(want))),
+              f"oracles {what}: max|Δ| {err.max(initial=0.0)}")
+
+    for i in range(n_inst):
+        R, cap, d = oracle_instance(rng, 28, 12)
+        app = np.arange(R.shape[0]) % A
+        Rc, cc, dc = (torch.tensor(a, device=dev) for a in (R, cap, d))
+        appc = torch.tensor(app, device=dev)
+        on_net = R.sum(1) > 0
+        close(demand_limited_maxmin(Rc, cc, dc).cpu().numpy(),
+              demand_limited_maxmin_np(R, cap, d), f"{i} demand-limited")
+        # without demand caps: the reference with a slack demand on every
+        # on-net flow; maxmin_rates gives off-net flows +inf
+        slack = np.where(on_net, cap.sum() + 1.0, 0.0).astype(np.float32)
+        ref = demand_limited_maxmin_np(R, cap, slack)
+        x = maxmin_rates(Rc, cc).cpu().numpy()
+        check(bool(np.all(np.isposinf(x[~on_net]))
+                   and np.isfinite(x[on_net]).all()),
+              f"oracles {i} maxmin_rates: +inf exactly off the network")
+        close(x[on_net], ref[on_net], f"{i} maxmin_rates")
+        per_app = tcp_app_throughput(Rc, cc, appc, A)
+        check(torch.equal(per_app, tcp_app_throughput(Rc, cc, appc, A)),
+              f"oracles {i} tcp_app_throughput: the same bits twice")
+        want = np.array([ref[(app == a) & on_net].sum() for a in range(A)])
+        close(per_app.cpu().numpy(), want, f"{i} tcp_app_throughput",
+              atol=ORACLE_TOL["atol"] * R.shape[0])
+        # one priority group: strict priority is max-min with slack demands,
+        # through the fixed-trip fill (FILL_ROUNDS), which is exact where
+        # the bottleneck-level chain is shallow: here every flow keeps only
+        # its first link, so each link is a level of its own
+        R1 = R * (np.cumsum(R, 1) == 1)
+        sched = AppFairScheduler(A, n_groups=1, device=dev)
+        state = sched.init()
+        R1c = torch.tensor(R1, device=dev)
+        _, xa = sched.step(state, torch.zeros(A, device=dev), R1c, cc, appc)
+        _, xb = sched.step(state, torch.zeros(A, device=dev), R1c, cc, appc)
+        check(torch.equal(xa, xb), f"oracles {i} App-Fair: the same bits")
+        close(xa.cpu().numpy(), demand_limited_maxmin_np(R1, cap, slack),
+              f"{i} App-Fair one group")
+
+    # 60 App-Fair steps on a multi-link instance, card against CPU
+    R, cap, _ = oracle_instance(np.random.default_rng(4), 30, 8)
+    app = np.random.default_rng(5).integers(0, 6, R.shape[0])
+    cards = AppFairScheduler(6, alpha=0.5, n_groups=3, device=dev)
+    cpus = AppFairScheduler(6, alpha=0.5, n_groups=3, device="cpu")
+    sc, sp = cards.init(), cpus.init()
+    args_c = [torch.tensor(a, device=dev) for a in (R, cap, app)]
+    args_p = [torch.tensor(a) for a in (R, cap, app)]
+    prev = np.zeros(6, np.float32)
+    for step in range(60):
+        sc, xc = cards.step(sc, torch.tensor(prev, device=dev), *args_c)
+        sp, xp = cpus.step(sp, torch.tensor(prev), *args_p)
+        check(torch.equal(sc.priority.cpu(), sp.priority),
+              f"App-Fair step {step}: card and CPU priorities differ")
+        err = float((xc.cpu() - xp).abs().max())
+        check(err <= 1e-5 + 1e-5 * float(xp.abs().max()),
+              f"App-Fair step {step}: card vs CPU max|Δ| {err}")
+        xn = xp.numpy()
+        prev = np.array([xn[app == a].sum() for a in range(6)], np.float32)
+    print(f"oracles: {n_inst} instances (28 flows x 12 links) on the card "
+          f"against demand_limited_maxmin_np: max|Δ| {worst:.3e} "
+          f"(atol {ORACLE_TOL['atol']}, rtol {ORACLE_TOL['rtol']}); 60 "
+          f"App-Fair steps card vs CPU, last step's max|Δ| {err:.3e}")
+
+
+def phase_examples(dev) -> None:
+    """``examples/port_*.py`` with ``--device cuda``: the §VII fairness demo
+    (App-Fair's Jain ≥ 0.98 for every α, TCP's within 1e-3 of 0.818), the
+    oracles (:func:`phase_oracles`), the in-run failure demo against the
+    JAX reference's numbers, and the serving demo at ``reduced()``."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    fair = load_example("port_multiapp_fairness").main(["--device", "cuda"])
+    check(abs(fair["tcp_jain"] - 0.818) <= 1e-3,
+          f"multiapp: TCP Jain {fair['tcp_jain']} not 0.818")
+    for alpha, (avg, jain) in fair["appfair"].items():
+        check(jain >= 0.98, f"multiapp: App-Fair(α={alpha}) Jain {jain}")
+    print(f"examples: multiapp_fairness in {time.perf_counter() - t0:.2f} s")
+    phase_oracles(dev)
+    t0 = time.perf_counter()
+    dyn = load_example("port_dynamic_failure").main(["--device", "cuda"])
+    for policy, row in dyn.items():
+        gold = GOLDEN_DYNAMIC[policy]
+        check(bool(np.isfinite(row[:3]).all()),
+              f"dynamic_failure {policy}: finite")
+        check(abs(row[0] / gold[0] - 1) <= GOLDEN_RTOL
+              and abs(row[1] / gold[1] - 1) <= GOLDEN_RTOL,
+              f"dynamic_failure {policy}: {row} vs the reference's {gold}")
+    check(dyn["appaware"][0] > dyn["tcp"][0],
+          "dynamic_failure: appaware beats tcp")
+    print(f"examples: dynamic_failure in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    reqs = load_example("port_serve_decode").main(["--device", "cuda"])
+    check(len(reqs) == 6 and all(r.done and len(r.out) == 12 for r in reqs),
+          "serve_decode: 6 requests of 12 tokens")
+    print(f"examples: serve_decode in {time.perf_counter() - t0:.2f} s")
 
 
 if __name__ == "__main__":

@@ -1,3 +1,4 @@
-"""Model configurations of the port, copies of the JAX package's
-``repro.configs`` for the families the port serves; each module registers
-itself with :func:`repro_torch.models.registry.register`."""
+"""Configurations of the port, copies of the JAX package's ``repro.configs``:
+the model configurations of the families the port serves, each of which
+registers itself with :func:`repro_torch.models.registry.register`, and the
+paper's stream testbed (``paper_stream``), which registers nothing."""

@@ -14,9 +14,12 @@ slice of each bottleneck. The paper's `App-Fair` point solution:
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from repro_torch.core.tcp import maxmin_fused
+from repro_torch.core.tcp import maxmin_fused, maxmin_rates
+from repro_torch.device import resolve_device
 
 _EPS = 1e-9
 
@@ -71,3 +74,64 @@ def strict_priority_alloc(
         rates = maxmin_fused(R, resid, demand)
         x = x + rates * sel.to(R.dtype)
     return x
+
+
+class AppFairState(NamedTuple):
+    total: torch.Tensor     # [A] cumulative throughput per app
+    n: torch.Tensor         # [] intervals observed
+    priority: torch.Tensor  # [A]
+
+
+class AppFairScheduler:
+    """§VII App-Fair: blend the cumulative average μ(t) ('achieved average
+    throughput up to time t') with the recent interval μ(Δt) via eq. (5),
+    regroup every interval (displacement), allocate with strict priority.
+    The state lives on ``device``: the CUDA card unless the caller asks
+    for another device (raises without a card)."""
+
+    def __init__(self, n_apps: int, alpha: float = 0.5, n_groups: int = 8,
+                 device: "str | torch.device | None" = None):
+        self.alpha = float(alpha)
+        self.n_groups = int(n_groups)
+        self.n_apps = int(n_apps)
+        self.device = resolve_device(device)
+
+    def init(self) -> AppFairState:
+        return AppFairState(
+            total=torch.zeros((self.n_apps,), dtype=torch.float32,
+                              device=self.device),
+            n=torch.zeros((), dtype=torch.float32, device=self.device),
+            priority=torch.zeros((self.n_apps,), dtype=torch.int64,
+                                 device=self.device),
+        )
+
+    def step(
+        self,
+        state: AppFairState,
+        mu_interval: torch.Tensor,   # [A] throughput achieved this Δt
+        R: torch.Tensor,
+        capacity: torch.Tensor,
+        app_of_flow: torch.Tensor,
+    ) -> tuple[AppFairState, torch.Tensor]:
+        total = state.total + mu_interval
+        n = state.n + 1.0
+        mu_hist = total / torch.clamp_min(n, 1.0)  # μ(t): running average
+        mu = ewma_throughput(mu_hist, mu_interval, self.alpha)
+        # displacement: regrouping *every interval* moves apps between groups,
+        # guaranteeing no app is starved indefinitely (paper §VII).
+        prio = group_by_throughput(mu, self.n_groups)
+        x = strict_priority_alloc(
+            R, capacity, app_of_flow, prio, n_groups=self.n_groups
+        )
+        return AppFairState(total=total, n=n, priority=prio), x
+
+
+def tcp_app_throughput(R, capacity, app_of_flow, n_apps: int):
+    """Baseline for Fig. 13: per-app aggregate of flow-level max-min rates.
+    The per-app sum is a reduction over a one-hot [F, A] product, not an
+    atomic scatter, so the card gives the same bits on every run."""
+    x = maxmin_rates(R, capacity)
+    x = torch.where(torch.isfinite(x), x, 0.0)
+    apps = torch.arange(n_apps, device=x.device)
+    onehot = (app_of_flow[:, None] == apps[None, :]).to(x.dtype)
+    return (x[:, None] * onehot).sum(0)

@@ -31,12 +31,18 @@ flows sharing bottleneck links.
   ``torch.where`` (a device-side decision: the host never waits on it),
   and ``rebuilt`` reports the decision for the rebuild count.
 
-The while-loop oracles of the JAX package (``maxmin_rates``,
-``demand_limited_maxmin``) are not ported; the tests hold this module
-against them and against ``repro.core.tcp.demand_limited_maxmin_np``.
+* :func:`maxmin_rates` / :func:`demand_limited_maxmin` — the progressive-
+  filling parity oracles (``lax.while_loop``s in the JAX package): a Python
+  loop over rounds with one host read per round for the stop rule, off the
+  hot path. ``demand_limited_maxmin`` takes per-link levels by bisection —
+  independent math from both fused forms — and freezes only sated flows
+  and the global-minimum bottleneck level, so its fixed point is the
+  max-min allocation. :func:`demand_limited_maxmin_np` is the plain-numpy
+  sequential reference with unbounded rounds.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _EPS = 1e-9
@@ -64,6 +70,161 @@ MAXMIN_CROSSOVER_F = 256
 # GEMM-form candidate rows are processed in chunks of this size once F
 # outgrows ``2 * MAXMIN_BLOCK_FLOWS``.
 MAXMIN_BLOCK_FLOWS = 64
+
+
+# --------------------------------------------------------------------------
+# progressive-filling parity oracles (off the hot path)
+# --------------------------------------------------------------------------
+def maxmin_rates(R: torch.Tensor, capacity: torch.Tensor,
+                 active: torch.Tensor | None = None) -> torch.Tensor:
+    """Exact max-min fair rates (no demand caps).
+
+    R: [F, L] binary routing; capacity: [L]; active: [F] mask (default all).
+    Flows traversing no link get rate +inf (caller clamps to demand);
+    inactive flows that traverse no link get 0.
+    """
+    F, L = R.shape
+    if active is None:
+        active = torch.ones((F,), dtype=R.dtype, device=R.device)
+    active = active.to(R.dtype)
+    on_net = (R.sum(1) > 0) & (active > 0)
+    x = torch.zeros((F,), dtype=R.dtype, device=R.device)
+    frozen = torch.zeros((F,), dtype=torch.bool, device=R.device)
+    link_done = torch.zeros((L,), dtype=torch.bool, device=R.device)
+    any_left = True
+    # one round per bottleneck level: every link attaining the current
+    # water level freezes at once, and the loop ends when a round finds no
+    # finite share (no link has unfrozen flows left)
+    while any_left:
+        unfrozen = (~frozen) & on_net
+        n_l = (R * unfrozen[:, None].to(R.dtype)).sum(0)             # [L]
+        # x·frozen before the product: x is finite wherever it is read
+        used = (R * (x * frozen.to(R.dtype))[:, None]).sum(0)        # [L]
+        resid = torch.clamp_min(capacity - used, 0.0)
+        fair = torch.where((n_l > 0) & ~link_done,
+                           resid / torch.clamp_min(n_l, 1.0), _INF)
+        share = fair.min()
+        left = torch.isfinite(share)
+        tight = (fair <= share) & left                               # [L]
+        hit = ((R * tight[None, :].to(R.dtype)) != 0).any(1) & unfrozen
+        x = torch.where(hit, share, x)
+        frozen = frozen | hit
+        link_done = link_done | tight
+        any_left = bool(left)
+    # flows not on any congested link (or off-net): unconstrained
+    x = torch.where(on_net & ~frozen, _INF, x)
+    return torch.where(on_net, x, torch.where(active > 0, _INF, 0.0))
+
+
+def _bisect_levels(d, m, resid):
+    """θ_l with ``Σ_{unfrozen f on l} min(d_f, θ) = resid_l`` by 50
+    bisection steps on [0, resid_l] (+inf where the link cannot saturate):
+    the float32 interval width resid·2⁻⁵⁰ lies far inside the solver's tie
+    tolerance."""
+    n_l = m.sum(0)
+    sum_d = (d[:, None] * m).sum(0)
+    saturable = (n_l > 0) & (sum_d > resid * (1.0 + _RTOL) + _ATOL)
+    lo, hi = torch.zeros_like(resid), torch.clamp_min(resid, 0.0)
+    for _ in range(50):
+        # Σ min(d, mid) > resid → the level lies below mid, else above
+        mid = 0.5 * (lo + hi)
+        s = (torch.minimum(d[:, None], mid[None, :]) * m).sum(0)
+        over = s > resid
+        lo, hi = torch.where(over, lo, mid), torch.where(over, mid, hi)
+    return torch.where(saturable, 0.5 * (lo + hi), _INF)
+
+
+def demand_limited_maxmin(R: torch.Tensor, capacity: torch.Tensor,
+                          demand: torch.Tensor,
+                          iters: int | None = None) -> torch.Tensor:
+    """Max-min with per-flow demand caps: sequential progressive filling,
+    one bottleneck event per round, per-link saturation levels by
+    bisection. Demand-satisfied flows freeze first (their level can only
+    rise); otherwise the single tightest water level (with its ties) is
+    final. Off-net flows get their demand.
+
+    The loop stops when a round freezes no flow, when every flow is frozen,
+    or after ``iters`` rounds (default F + L + 1, the convergence bound:
+    every round freezes at least one flow or terminates).
+    """
+    F, L = R.shape
+    R = R.to(torch.float32)
+    on_net = R.sum(1) > 0
+    d = torch.where(on_net, torch.clamp_min(demand, 0.0), 0.0)
+    if iters is None:
+        iters = F + L + 1
+    x = torch.where(on_net, 0.0, demand.to(torch.float32))
+    frozen = ~on_net
+    resid = capacity.to(torch.float32)
+    rounds = 0
+    go = bool((~frozen).any()) and rounds < iters
+    while go:
+        u = ~frozen
+        m = R * u[:, None].to(R.dtype)
+        theta = _bisect_levels(d, m, resid)
+        th_flow = torch.where(R > 0, theta[None, :], _INF).amin(1)
+        sated = u & (d <= th_flow * (1.0 + _RTOL) + _ATOL)
+        lvl = torch.where(u, th_flow, _INF).min()
+        at_lvl = u & (th_flow <= lvl * (1.0 + _RTOL) + _ATOL)
+        newf = torch.where(sated.any(), sated, at_lvl)
+        vals = torch.minimum(d, th_flow)           # th_flow = inf → demand
+        x = torch.where(newf, vals, x)
+        resid = torch.clamp_min(resid - torch.where(newf, vals, 0.0) @ R,
+                                0.0)
+        frozen = frozen | newf
+        rounds += 1
+        # the reference's stop rule: progressed & any(~frozen) & rounds < iters
+        go = bool(newf.any() & (~frozen).any()) and rounds < iters
+    return x
+
+
+def demand_limited_maxmin_np(R, capacity, demand):
+    """Plain-numpy sequential progressive filling with demand caps —
+    unbounded rounds, one bottleneck event at a time. The slow, obviously-
+    correct reference the fused solver (and the loop oracles) are tested
+    against."""
+    R = np.asarray(R, np.float64)
+    resid = np.asarray(capacity, np.float64).copy()
+    d = np.asarray(demand, np.float64)
+    F, L = R.shape
+    on_net = R.sum(1) > 0
+    x = np.where(on_net, 0.0, d)
+    frozen = ~on_net
+    d = np.where(on_net, np.maximum(d, 0.0), 0.0)
+    for _ in range(F + L + 1):
+        u = ~frozen
+        if not u.any():
+            break
+        # exact saturation level per link (sort the link's own demands)
+        theta = np.full(L, np.inf)
+        for link in range(L):
+            f = u & (R[:, link] > 0)
+            n = int(f.sum())
+            if n == 0 or d[f].sum() <= resid[link] + 1e-12:
+                continue  # link cannot saturate: no level
+            ds = np.sort(d[f])
+            capped = 0.0
+            for k in range(n):
+                t = (resid[link] - capped) / (n - k)
+                if t <= ds[k] + 1e-15:   # guaranteed for some k: Σd > resid
+                    theta[link] = t
+                    break
+                capped += ds[k]
+        th_flow = np.where(
+            on_net, np.min(np.where(R > 0, theta[None, :], np.inf), 1), np.inf
+        )
+        lvl = np.inf if not u.any() else np.nanmin(th_flow[u])
+        # freeze demand-satisfied flows first, else the single tightest level
+        sated = u & (d <= th_flow + 1e-12)
+        if sated.any():
+            newf = sated
+        else:
+            newf = u & (th_flow <= lvl * (1 + 1e-12))
+        vals = np.minimum(d, th_flow)
+        x = np.where(newf, vals, x)
+        resid = np.maximum(resid - (vals * newf) @ R, 0.0)
+        frozen |= newf
+    return x
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,120 @@
+"""The port's examples (``examples/port_*.py``) against the JAX package's,
+run the same way on the CPU: ``REPRO_SMOKE=1`` and the same smaller module
+constants on both sides. The numbers each prints (rounded as printed) agree
+at 1e-4 relative, and the text around them is the same.
+
+``port_serve_decode.py`` draws its weights from a ``torch.Generator``, not
+from ``jax.random``, so its tokens differ from the JAX example's: the test
+holds the request and token counts instead (the LM itself is held to JAX in
+tests/test_torch_lm.py)."""
+import importlib.util
+import re
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = ROOT / "examples"
+NUM = re.compile(r"[-+]?\d+(?:\.\d+)?(?:e[-+]?\d+)?")
+
+# module constants set smaller on both sides, and which printed lines hold
+# results (the rest are wall times and runner statistics)
+SMALL = {
+    "multiapp_fairness": {},
+    "stream_allocator_demo": {"CAPS": {"10Mbps": 1.25}},
+    "dynamic_failure": {},
+    "fleet_sweep": {"SECONDS": 30.0},
+    "campaign_sweep": {"N": 24, "SECONDS": 30.0},
+}
+
+
+def _load(path: Path):
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _result_lines(name: str, out: str) -> list[str]:
+    lines = out.splitlines()
+    if name == "fleet_sweep":      # the scenario table
+        start = next(i for i, ln in enumerate(lines)
+                     if ln.startswith("scenario"))
+        end = lines.index("", start)
+        return lines[start:end]
+    if name == "campaign_sweep":   # the per-axis tables
+        start = next(i for i, ln in enumerate(lines) if ln.startswith("by app"))
+        end = next(i for i, ln in enumerate(lines) if ln.startswith("wall:"))
+        return lines[start:end]
+    return lines
+
+
+def _run(name, prefix, capsys, monkeypatch, argv):
+    mod = _load(EXAMPLES / f"{prefix}{name}.py")
+    for k, v in SMALL.get(name, {}).items():
+        monkeypatch.setattr(mod, k, v)
+    capsys.readouterr()
+    if prefix:
+        ret = mod.main(argv)
+    else:
+        monkeypatch.setattr(sys, "argv", [f"{name}.py"])
+        ret = mod.main()
+    return capsys.readouterr().out, ret
+
+
+@pytest.mark.parametrize("name", list(SMALL))
+def test_port_example_prints_the_jax_numbers(name, capsys, monkeypatch):
+    monkeypatch.setenv("REPRO_SMOKE", "1")
+    want, _ = _run(name, "", capsys, monkeypatch, None)
+    got, _ = _run(name, "port_", capsys, monkeypatch, ["--device", "cpu"])
+    want_l, got_l = _result_lines(name, want), _result_lines(name, got)
+    assert len(got_l) == len(want_l) and got_l, (got, want)
+    for g, w in zip(got_l, want_l):
+        assert NUM.sub("#", g) == NUM.sub("#", w), (g, w)
+        gn = [float(x) for x in NUM.findall(g)]
+        wn = [float(x) for x in NUM.findall(w)]
+        np.testing.assert_allclose(gn, wn, rtol=1e-4, atol=0.0,
+                                   err_msg=f"{g!r} vs {w!r}")
+
+
+def test_port_multiapp_fairness_returns_its_numbers(capsys):
+    out = _load(EXAMPLES / "port_multiapp_fairness.py").main(
+        ["--device", "cpu"])
+    assert abs(out["tcp_jain"] - 0.818) < 1e-3
+    np.testing.assert_allclose(out["tcp"], 100 * np.arange(1, 6) / 15,
+                               rtol=1e-6)
+    for alpha, (avg, jain) in out["appfair"].items():
+        assert jain >= 0.98, alpha
+        np.testing.assert_allclose(avg, 20.0, rtol=1e-5)
+
+
+def test_port_serve_decode_counts_match_jax(capsys, monkeypatch):
+    args = ["--requests", "4", "--new-tokens", "6", "--slots", "2"]
+    jax_mod = _load(EXAMPLES / "serve_decode.py")
+    monkeypatch.setattr(sys, "argv", ["serve_decode.py", *args])
+    capsys.readouterr()
+    jax_mod.main()
+    want = capsys.readouterr().out.splitlines()
+    reqs = _load(EXAMPLES / "port_serve_decode.py").main(
+        [*args, "--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    counts = re.compile(r"— (\d+) requests, (\d+) tokens")
+    assert counts.search(got[0]).groups() == counts.search(want[0]).groups()
+    assert got[0].startswith("arch=yi-6b (reduced)")
+    assert len(got) == len(want) == 1 + 4
+    assert all(r.done and len(r.out) == 6 for r in reqs)
+    for g, w in zip(got[1:], want[1:]):
+        assert len(NUM.findall(g)) == len(NUM.findall(w))
+
+
+@pytest.mark.parametrize("path", sorted(EXAMPLES.glob("port_*.py")),
+                         ids=lambda p: p.stem)
+def test_port_example_defaults_to_the_card(path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _load(path).main([])

@@ -1,8 +1,9 @@
 """The port must run on a machine that has no JAX: no module of
-``src/repro_torch/`` and not ``chip_smoke.py`` may import ``jax`` or anything
-of the JAX package ``repro``. Checked statically (every import statement,
-with ``ast``) and by importing the entry points in a subprocess where
-``jax`` and ``repro`` cannot be imported."""
+``src/repro_torch/``, not ``chip_smoke.py`` and no ``examples/port_*.py`` may
+import ``jax`` or anything of the JAX package ``repro``. Checked statically
+(every import statement, with ``ast``) and by importing the entry points and
+the examples in a subprocess where ``jax`` and ``repro`` cannot be
+imported."""
 import ast
 import os
 import subprocess
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("port_*.py")))
 
 
 def _forbidden(module: str) -> bool:
@@ -42,8 +44,15 @@ def test_guard_sees_the_whole_port():
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
     for must in ("serve/engine.py", "models/lm.py", "models/convert.py",
                  "kernels/flash_attention/ops.py", "kernels/ssd_scan/ops.py",
-                 "kernels/waterfill/ops.py", "streams/simulator.py"):
+                 "kernels/waterfill/ops.py", "streams/simulator.py",
+                 "core/tcp.py", "core/multiapp.py", "configs/paper_stream.py",
+                 "configs/yi_6b.py"):
         assert must in names
+    examples = {p.name for p in FILES if p.parent.name == "examples"}
+    for must in ("port_multiapp_fairness.py", "port_stream_allocator_demo.py",
+                 "port_dynamic_failure.py", "port_fleet_sweep.py",
+                 "port_campaign_sweep.py", "port_serve_decode.py"):
+        assert must in examples
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)
@@ -76,8 +85,14 @@ import repro_torch.kernels.flash_attention.ops
 import repro_torch.kernels.ssd_scan.ops
 import repro_torch.kernels.waterfill.ops
 import repro_torch.streams
+import repro_torch.core
+import repro_torch.configs.paper_stream
+import runpy
+for ex in sorted(__import__("pathlib").Path("examples").glob("port_*.py")):
+    runpy.run_path(str(ex), run_name="example")
 from repro_torch.models.registry import list_archs
-assert list_archs() == ["mamba2-370m", "qwen1.5-0.5b", "zamba2-1.2b"]
+assert list_archs() == ["mamba2-370m", "qwen1.5-0.5b", "stablelm-1.6b",
+                        "starcoder2-15b", "yi-6b", "zamba2-1.2b"]
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
 print("ok")
 """
@@ -87,6 +102,6 @@ def test_entry_points_import_without_jax():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", _BLOCKER], env=env,
                          capture_output=True, text=True, timeout=300,
-                         check=False)
+                         check=False, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")

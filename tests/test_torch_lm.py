@@ -35,8 +35,23 @@ CASES = {
     "zamba2-gqa": ("zamba2-1.2b", {"n_kv_heads": 2}),
     "mamba2": ("mamba2-370m", {}),
     "qwen": ("qwen1.5-0.5b", {}),
+    "yi": ("yi-6b", {}),
+    "stablelm": ("stablelm-1.6b", {}),
+    "starcoder2": ("starcoder2-15b", {}),
 }
-_PERTURB = ("A_log", "dt_bias", "D", "norm_w", "w", "bq", "bk", "bv")
+# zero/one-initialised leaves: the norms' weights and layernorm biases, the
+# qkv and MLP biases, the Mamba2 scalars
+_PERTURB = ("A_log", "dt_bias", "D", "norm_w", "w", "b", "bq", "bk", "bv",
+            "b_in", "b_out")
+# JAX ``get_model(cfg).count_params()`` at full width
+FULL_PARAMS = {
+    "mamba2-370m": 368_338_432,
+    "qwen1.5-0.5b": 463_987_712,
+    "stablelm-1.6b": 1_644_367_872,
+    "starcoder2-15b": 15_655_653_376,
+    "yi-6b": 6_061_035_520,
+    "zamba2-1.2b": 1_104_937_856,
+}
 
 
 def _setup(case, seed=0, gain=1.0):
@@ -67,7 +82,8 @@ def _np(t):
 
 
 def test_configs_are_copies_of_jax():
-    assert list_archs() == ["mamba2-370m", "qwen1.5-0.5b", "zamba2-1.2b"]
+    assert list_archs() == ["mamba2-370m", "qwen1.5-0.5b", "stablelm-1.6b",
+                            "starcoder2-15b", "yi-6b", "zamba2-1.2b"]
     for name in list_archs():
         j = dataclasses.asdict(jax_config(name))
         t = dataclasses.asdict(get_config(name))
@@ -80,6 +96,14 @@ def test_configs_are_copies_of_jax():
             tr = dataclasses.asdict(get_config(name).reduced(**over))
             assert tr["dtype"] == torch.float32
             assert all(jr[k] == v for k, v in tr.items() if k != "dtype")
+
+
+@pytest.mark.parametrize("name", sorted(FULL_PARAMS))
+def test_full_width_param_count_matches_jax(name):
+    """Arithmetic over the specs at full width: nothing is allocated."""
+    n = get_model(get_config(name), device="cpu").count_params()
+    assert n == jax_model(jax_config(name)).count_params()
+    assert n == FULL_PARAMS[name]
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -150,7 +174,8 @@ def test_prefill_decode_matches_forward(case):
                                    err_msg=f"{case}: decode step {i}")
 
 
-@pytest.mark.parametrize("case", ["zamba2-tail", "mamba2", "qwen"])
+@pytest.mark.parametrize("case", ["zamba2-tail", "mamba2", "qwen", "yi",
+                                  "stablelm", "starcoder2"])
 def test_serve_engine_matches_jax(case):
     jcfg, jparams, tcfg, model = _setup(case, seed=2, gain=8.0)
     rng = np.random.default_rng(3)

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import repro.core.multiapp as jm
 import repro.core.tcp as jtcp
 from _torch_parity import assert_close, t32, tint
-from repro.core.tcp import demand_limited_maxmin_np
+from repro_torch.core.tcp import demand_limited_maxmin_np
 from repro_torch.core import multiapp as pm
 from repro_torch.core import tcp as ptcp
 from test_maxmin_fused import _assert_maxmin_invariant, _instance

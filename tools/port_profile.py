@@ -14,9 +14,10 @@ tcp and appaware (solver="waterfill"), 30 s, per fleet tick (one tick of
 every bucket); and a campaign of ``campaign_fleet(1024)`` in chunks of 256
 rows, appaware through the kernel, per chunk tick (one tick of one chunk).
 
-Serving: zamba2-1.2b at full width (bf16, random weights from a seed), one
-wave of chip_smoke.py's serving run: the prefill of 4 × 512 tokens, and 8
-decode steps of 4 tokens, each warmed up, timed and profiled the same way.
+Serving: zamba2-1.2b and yi-6b at full width (bf16, random weights from a
+seed), one wave of chip_smoke.py's serving runs: the prefill of 4 × 512
+tokens, and 8 decode steps of 4 tokens, each warmed up, timed and profiled
+the same way.
 
 Prints per unit (tick, prefill, decode step) the wall time of the timed
 run, the summed device time of all device activities in the profiled run,
@@ -85,18 +86,18 @@ def _report(label: str, fn, n_units: int, unit: str) -> None:
               f"ms/{unit} x{e.count / n_units:6.1f}  {e.key[:90]}")
 
 
-def _serve(n_decode: int = 8) -> None:
+def _serve(arch: str, n_decode: int = 8) -> None:
     import numpy as np
     import torch
 
     from repro_torch.models.registry import get_config, get_model
 
     B, S, max_len = 4, 512, 544
-    api = get_model(get_config("zamba2-1.2b"))
+    api = get_model(get_config(arch))
     model = api.init(torch.Generator(device="cuda").manual_seed(0))
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, api.cfg.vocab, (B, S)), dtype=torch.long, device="cuda")
-    _report("zamba2-1.2b serving [4 x 512 tokens] prefill",
+    _report(f"{arch} serving [4 x 512 tokens] prefill",
             lambda: api.prefill(model, {"tokens": toks}, max_len), 1,
             "wave")
     _, cache = api.prefill(model, {"tokens": toks}, max_len)
@@ -105,8 +106,10 @@ def _serve(n_decode: int = 8) -> None:
     def decode():
         for i in range(n_decode):
             api.decode(model, cache, nxt, S + i)
-    _report("zamba2-1.2b serving [4 x 512 tokens] decode", decode,
+    _report(f"{arch} serving [4 x 512 tokens] decode", decode,
             n_decode, "step")
+    del model, cache
+    torch.cuda.empty_cache()
 
 
 def _fleet() -> None:
@@ -166,7 +169,8 @@ def main() -> int:
     if "fleet" in parts:
         _fleet()
     if "serve" in parts:
-        _serve()
+        for arch in ("zamba2-1.2b", "yi-6b"):
+            _serve(arch)
     return 0
 
 
