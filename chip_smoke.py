@@ -37,7 +37,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    bfloat16; SSD chunk: BH 4·64, 4 chunks of 128, P 64, N 64), plus GQA
    (H 8, K 2 float32; H 32, K 8 bfloat16), hd 128 (both), a ragged S
    (300, float32 and bfloat16), yi-6b's prefill launch (H 32, K 4, hd 128,
-   bfloat16) and mamba2-370m's N = 128: max |Δ| ≤ 2e-5
+   bfloat16), the prefill launches of phases 14-17 (qwen3-moe H 64 over
+   K 4 at hd 128, dbrx H 48 over K 8, internvl2 S 768 with H 14 over K 2,
+   whisper's non-causal encoder at S = T = 1,500 and cross-attention at
+   S 4, T 1,500, all bfloat16) and mamba2-370m's N = 128: max |Δ| ≤ 2e-5
    (flash float32), 2e-2 (flash bfloat16), 1e-4 (SSD), the JAX tests' own
    tolerances; prints each kernel's time (as in phase 3), its plain
    version's, SDPA's for flash (a CUDA graph too), and the bound (float32
@@ -99,7 +102,34 @@ Phases, each of which makes the script exit non-zero when it fails:
     oracles (``maxmin_rates``, ``demand_limited_maxmin``,
     ``tcp_app_throughput``, ``AppFairScheduler``) on CUDA tensors against
     ``demand_limited_maxmin_np``, ``port_dynamic_failure`` within 1% of the
-    JAX example's throughputs, and ``port_serve_decode`` at ``reduced()``.
+    JAX example's throughputs, and ``port_serve_decode`` at ``reduced()``;
+14. serving qwen3-moe-235b-a22b at full width (d_model 4096, 64 heads over
+    4 KV heads of 128, 128 experts of d_ff 1536, top-8, qk-norm, vocab
+    151,936) cut to 8 of its 94 layers (21.15B parameters, 42.3 GB of
+    bfloat16 weights; the full-width ``count_params`` 235,093,634,560 and
+    ``active_params`` 22,190,763,520 are the JAX counts), random weights
+    from a fixed seed cast as they are drawn: the same requests, slots and
+    timings as phase 8, every logit finite, every request gets 32 tokens,
+    exactly 16 flash launches (8 layers per wave) and no SSD launch, and
+    the (token, k) slots dropped per wave's prefill. This is the moe
+    main-path run. Then one full-width layer in float32, B 1, S 128, built
+    on the card and copied to the CPU: every MoE call's top-8 experts
+    identical card vs CPU (the smallest gap between the 8th and the 9th
+    router probability printed), then the logits within
+    1e-5·max|logits|;
+15. serving dbrx-132b at full width cut to 2 of its 40 layers (7.75B
+    parameters, bfloat16, layernorm, 16 experts top-4): the same requests,
+    finite logits, 4 flash launches (G 6 at hd 128);
+16. serving internvl2-1b at full width and depth (494,583,808
+    parameters, bfloat16): 8 × (256 seeded patch embeddings through
+    ``extra_batch`` + 512 prompt tokens), 32 new tokens, 48 flash launches
+    at S 768; then 2 layers in float32 card vs CPU within
+    1e-5·max|logits|;
+17. serving whisper-tiny at full width and depth (36,624,768 parameters,
+    bfloat16): 8 × (1,500 seeded frames + a 4-token prompt), 32 new
+    tokens, 24 flash launches (per wave 4 non-causal encoder layers, 4
+    causal decoder self-attentions, 4 non-causal cross-attentions); then
+    the whole model in float32 card vs CPU within 1e-5·max|logits|.
 
 Before its last line the script prints one JSON object describing each
 kernel, then the card's name and power limit; the last line is
@@ -503,6 +533,36 @@ def main() -> int:
     phase_examples(dev)
     lap("13 (examples)")
 
+    # ---- 14. serve qwen3-moe-235b-a22b at full width (the moe main-path
+    # run), 8 of its 94 layers; one full-width layer in float32 ----------
+    served = {}
+    served["qwen3-moe-235b-a22b"] = phase_serve(
+        dev, "qwen3-moe-235b-a22b", n_params=QWEN3_MOE_PARAMS,
+        n_layers=QWEN3_MOE_LAYERS, active=QWEN3_MOE_ACTIVE)
+    lap("14 (serving qwen3-moe)")
+    phase_numeric(dev, "qwen3-moe-235b-a22b", n_layers=1, B=1, S=128, seed=3,
+                  routes=True)
+    lap("14b (qwen3-moe numeric)")
+
+    # ---- 15. serve dbrx-132b at full width, 2 of its 40 layers ----------
+    served["dbrx-132b"] = phase_serve(dev, "dbrx-132b",
+                                      n_params=DBRX_PARAMS, n_layers=2)
+    lap("15 (serving dbrx)")
+
+    # ---- 16. serve internvl2-1b (vlm) at full width and depth -----------
+    served["internvl2-1b"] = phase_serve(dev, "internvl2-1b",
+                                         n_params=INTERNVL2_PARAMS)
+    phase_numeric(dev, "internvl2-1b", n_layers=2, B=2, S=128, seed=4)
+    lap("16 (serving internvl2)")
+
+    # ---- 17. serve whisper-tiny (encdec) at full width and depth --------
+    served["whisper-tiny"] = phase_serve(dev, "whisper-tiny",
+                                         n_params=WHISPER_PARAMS,
+                                         prompt_len=WHISPER_PROMPT)
+    phase_numeric(dev, "whisper-tiny", n_layers=None, B=2,
+                  S=WHISPER_PROMPT, seed=5)
+    lap("17 (serving whisper)")
+
     main = results["datacenter"]["shared"]
     kernels = [{
         "name": "waterfill",
@@ -550,6 +610,11 @@ def main() -> int:
         "yi6b_plain_ms": yi6b["plain_ms"],
         "yi6b_bound_ms": yi6b["bound_ms"],
         "yi6b_library_ms": yi6b["library_ms"],
+        # phases 14-17's main paths (counts set to 0 just before each) and
+        # the kernel at their launch shapes (phase 7)
+        "serving_launches": {arch: n["flash_attention"]
+                             for arch, n in served.items()},
+        "serving_rows": flash["serving"],
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -892,6 +957,61 @@ def ssd_bound_ms(BH, nc, Q, P, N, Bsz):
 YI6B_FLASH = "yi-6b GQA H32/K4 hd128 bf16"
 # JAX ``get_model(get_config("yi-6b")).count_params()``
 YI6B_PARAMS = 6_061_035_520
+# JAX ``count_params()`` (and qwen3-moe's ``active_params()``) at full
+# width; qwen3-moe is served cut to 8 of its 94 layers (21.15B parameters,
+# 42.3 GB of bf16 weights: 235B do not fit one card), dbrx to 2 of its 40
+QWEN3_MOE_PARAMS = 235_093_634_560
+QWEN3_MOE_ACTIVE = 22_190_763_520
+QWEN3_MOE_LAYERS = 8
+DBRX_PARAMS = 131_597_021_184
+INTERNVL2_PARAMS = 494_583_808
+WHISPER_PARAMS = 36_624_768
+WHISPER_PROMPT = 4            # decoder prompt tokens beside 1,500 frames
+# phase 7's rows at the launch shapes of phases 14-17's prefills: label ->
+# the arch whose prefill launches the kernel so
+SERVING_FLASH = {
+    "qwen3-moe G16 H64/K4 hd128 bf16": "qwen3-moe-235b-a22b",
+    "dbrx G6 H48/K8 hd128 bf16": "dbrx-132b",
+    "internvl2 G7 S768 H14/K2 hd64 bf16": "internvl2-1b",
+    "whisper encoder S=T=1500 bf16": "whisper-tiny",
+    "whisper cross S4 T1500 bf16": "whisper-tiny",
+}
+# phase 7's flash rows: label, (B, S, T, H, K, hd), dtype (by name),
+# tolerance (the JAX tests': 2e-5 float32, 2e-2 bfloat16), causal
+FLASH_ROWS = (
+    ("serving f32", (SERVE_B, SERVE_S, SERVE_S, 32, 32, 64), "float32",
+     2e-5, True),
+    ("serving bf16", (SERVE_B, SERVE_S, SERVE_S, 32, 32, 64), "bfloat16",
+     2e-2, True),
+    ("GQA H8/K2", (SERVE_B, SERVE_S, SERVE_S, 8, 2, 64), "float32", 2e-5,
+     True),
+    ("ragged S300", (2, 300, 300, 8, 2, 64), "float32", 2e-5, True),
+    ("hd128 f32", (SERVE_B, SERVE_S, SERVE_S, 16, 16, 128), "float32", 2e-5,
+     True),
+    # the bf16 kernel (tensor cores, TMA) at serving width
+    ("GQA H32/K8 bf16", (SERVE_B, SERVE_S, SERVE_S, 32, 8, 64), "bfloat16",
+     2e-2, True),
+    ("hd128 bf16", (SERVE_B, SERVE_S, SERVE_S, 16, 16, 128), "bfloat16",
+     2e-2, True),
+    ("ragged S300 bf16", (SERVE_B, 300, 300, 32, 32, 64), "bfloat16", 2e-2,
+     True),
+    # yi-6b's prefill launch shape (phase 12): G 8 at hd 128
+    (YI6B_FLASH, (SERVE_B, SERVE_S, SERVE_S, 32, 4, 128), "bfloat16", 2e-2,
+     True),
+    # phases 14-17: qwen3-moe G 16 and dbrx G 6 at hd 128, internvl2's
+    # 256 + 512 positions at G 7, whisper's non-causal encoder (1,500 rows,
+    # a ragged last tile) and cross-attention (4 decoder tokens)
+    ("qwen3-moe G16 H64/K4 hd128 bf16",
+     (SERVE_B, SERVE_S, SERVE_S, 64, 4, 128), "bfloat16", 2e-2, True),
+    ("dbrx G6 H48/K8 hd128 bf16", (SERVE_B, SERVE_S, SERVE_S, 48, 8, 128),
+     "bfloat16", 2e-2, True),
+    ("internvl2 G7 S768 H14/K2 hd64 bf16", (SERVE_B, 768, 768, 14, 2, 64),
+     "bfloat16", 2e-2, True),
+    ("whisper encoder S=T=1500 bf16", (SERVE_B, 1500, 1500, 6, 6, 64),
+     "bfloat16", 2e-2, False),
+    ("whisper cross S4 T1500 bf16", (SERVE_B, 4, 1500, 6, 6, 64),
+     "bfloat16", 2e-2, False),
+)
 
 
 # the LM path's kernels, each of which must issue HGMMA (phase 6)
@@ -935,48 +1055,33 @@ def phase_flash(dev) -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_plain
 
     g = torch.Generator(device=dev).manual_seed(0)
-    worst, timed, yi6b = 0.0, {}, {}
-    for label, (B, S, H, K, hd), dtype, tol in (
-            ("serving f32", (SERVE_B, SERVE_S, 32, 32, 64), torch.float32,
-             2e-5),
-            ("serving bf16", (SERVE_B, SERVE_S, 32, 32, 64), torch.bfloat16,
-             2e-2),
-            ("GQA H8/K2", (SERVE_B, SERVE_S, 8, 2, 64), torch.float32, 2e-5),
-            ("ragged S300", (2, 300, 8, 2, 64), torch.float32, 2e-5),
-            ("hd128 f32", (SERVE_B, SERVE_S, 16, 16, 128), torch.float32,
-             2e-5),
-            # the bf16 kernel (tensor cores, TMA) at serving width
-            ("GQA H32/K8 bf16", (SERVE_B, SERVE_S, 32, 8, 64), torch.bfloat16,
-             2e-2),
-            ("hd128 bf16", (SERVE_B, SERVE_S, 16, 16, 128), torch.bfloat16,
-             2e-2),
-            ("ragged S300 bf16", (SERVE_B, 300, 32, 32, 64), torch.bfloat16,
-             2e-2),
-            # yi-6b's prefill launch shape (phase 12): G 8 at hd 128
-            (YI6B_FLASH, (SERVE_B, SERVE_S, 32, 4, 128), torch.bfloat16,
-             2e-2)):
+    worst, timed, yi6b, serving = 0.0, {}, {}, []
+    for label, (B, S, T, H, K, hd), dtype, tol, causal in FLASH_ROWS:
+        dtype = getattr(torch, dtype)
         q = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
-        k = torch.randn(B, S, K, hd, generator=g, device=dev).to(dtype)
-        v = torch.randn(B, S, K, hd, generator=g, device=dev).to(dtype)
-        out = fa.flash_attention(q, k, v, causal=True)
+        k = torch.randn(B, T, K, hd, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, T, K, hd, generator=g, device=dev).to(dtype)
+        out = fa.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        plain = attention_plain(qt, kt, vt, True).transpose(1, 2)
+        plain = attention_plain(qt, kt, vt, causal).transpose(1, 2)
         err = float((out.float() - plain.float()).abs().max())
         check(bool(torch.isfinite(out).all()), f"flash {label}: finite")
         check(err <= tol, f"flash {label}: max|Δ| {err} > {tol}")
         worst = max(worst, err)
-        call = (lambda: fa.flash_attention(q, k, v, causal=True))
+        call = (lambda: fa.flash_attention(q, k, v, causal=causal))
         ms = graph_ms(call)
         eager_ms = event_ms(call, reps=20)
-        plain_ms = event_ms(lambda: attention_plain(qt, kt, vt, True),
+        plain_ms = event_ms(lambda: attention_plain(qt, kt, vt, causal),
                             reps=5, warmup=1)
-        bound_ms, bound_by, cuda_core_ms = flash_bound_ms(B, S, S, H, K, hd,
-                                                          dtype)
+        bound_ms, bound_by, cuda_core_ms = flash_bound_ms(B, S, T, H, K, hd,
+                                                          dtype, causal)
         lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=H != K))
-        print(f"kernel flash_attention {label} [B{B} S{S} H{H} K{K} hd{hd} "
-              f"{str(dtype)[6:]}]: max_abs_err {err:.3e} (tol {tol:g}), "
+            qt, kt, vt, is_causal=causal, enable_gqa=H != K))
+        shape = (f"B{B} S{S} T{T} H{H} K{K} hd{hd} {str(dtype)[6:]}"
+                 + ("" if causal else " non-causal"))
+        print(f"kernel flash_attention {label} [{shape}]: "
+              f"max_abs_err {err:.3e} (tol {tol:g}), "
               f"kernel {ms:.4f} ms (eager calls {eager_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), bound/kernel "
@@ -991,7 +1096,12 @@ def phase_flash(dev) -> dict:
             yi6b = dict(shape=f"B{B} S{S} H{H} K{K} hd{hd} bf16", ms=ms,
                         eager_ms=eager_ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, library_ms=lib_ms)
-    return dict(timed, max_abs_err=worst, yi6b=yi6b)
+        if label in SERVING_FLASH:
+            serving.append(dict(arch=SERVING_FLASH[label], shape=shape,
+                                max_abs_err=err, ms=ms, eager_ms=eager_ms,
+                                plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=lib_ms))
+    return dict(timed, max_abs_err=worst, yi6b=yi6b, serving=serving)
 
 
 def phase_ssd(dev) -> dict:
@@ -1043,57 +1153,108 @@ def phase_ssd(dev) -> dict:
     return dict(timed, max_abs_err=worst)
 
 
-def phase_serve(dev, arch: str = "zamba2-1.2b",
-                n_params: int | None = None) -> dict:
-    """``arch`` at full width through ServeEngine; returns the kernel
-    launches of this run. A hybrid launches flash once per shared-block
-    application and the SSD chunk kernel once per Mamba2 layer, a dense
-    model flash once per layer, per wave."""
+def serve_extra(cfg, rng, B: int) -> dict:
+    """The stub frontends' seeded inputs for ``B`` requests (numpy, float32):
+    a vlm's patch embeddings [B, n_vis, D], an encdec model's frame
+    embeddings [B, 1500, D]; nothing for the other families."""
+    import numpy as np
+
+    from repro_torch.models.registry import WHISPER_FRAMES
+
+    if cfg.family == "vlm":
+        n = cfg.n_vis_tokens
+    elif cfg.family == "encdec":
+        n = WHISPER_FRAMES
+    else:
+        return {}
+    key = "vis_embeds" if cfg.family == "vlm" else "frames"
+    return {key: rng.standard_normal((B, n, cfg.d_model)).astype(np.float32)}
+
+
+def flash_per_prefill(cfg) -> int:
+    """Flash launches of one prefill: one per attention application (a
+    hybrid's shared block per group; whisper's encoder layers, and its
+    decoder layers twice: self- and cross-attention)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def phase_serve(dev, arch: str = "zamba2-1.2b", n_params: int | None = None,
+                n_layers: int | None = None, prompt_len: int = SERVE_S,
+                active: int | None = None) -> dict:
+    """``arch`` at full width through ServeEngine (cut to ``n_layers``
+    layers when given; ``n_params`` and ``active`` are then checked on the
+    uncut config); returns the kernel launches of the served run. A vlm's
+    patch embeddings and an encdec model's frames are seeded and passed
+    through ``extra_batch``; an MoE run records its routing and prints the
+    (token, k) slots dropped per wave."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.models import blocks
     from repro_torch.models.registry import get_config, get_model
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_config(arch)
-    api = get_model(cfg, device=dev)
+    full = get_model(get_config(arch), device=dev)
     if n_params is not None:
-        check(api.count_params() == n_params,
-              f"serve {arch}: {api.count_params()} parameters != {n_params}")
+        n = full.count_params()
+        check(n == n_params, f"serve {arch}: {n} parameters != {n_params}")
+    if active is not None:
+        n = full.active_params()
+        check(n == active, f"serve {arch}: {n} active parameters != "
+                           f"{active}")
+    cfg = full.cfg if n_layers is None else dataclasses.replace(
+        full.cfg, n_layers=n_layers)
+    api = get_model(cfg, device=dev)
     t0 = time.perf_counter()
     model = api.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    print(f"serve: {arch}, {api.count_params():,} parameters, "
+    cut = ("" if n_layers is None else
+           f" (depth cut to {n_layers} of its {full.cfg.n_layers} layers; "
+           f"{full.count_params():,} parameters and "
+           f"{full.active_params():,} active at full depth)")
+    print(f"serve: {arch}, {api.count_params():,} parameters{cut}, "
           f"{str(cfg.dtype)[6:]}, initialised on the card in "
           f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
-    prompts = rng.integers(0, cfg.vocab, (SERVE_REQS, SERVE_S)).astype(
+    prompts = rng.integers(0, cfg.vocab, (SERVE_REQS, prompt_len)).astype(
         np.int32)
+    extra = serve_extra(cfg, rng, SERVE_B)
+    n_vis = cfg.n_vis_tokens if cfg.family == "vlm" else 0
     finite = torch.ones((), dtype=torch.bool, device=dev)
 
     def sampler(logits):
         finite.logical_and_(torch.isfinite(logits).all())
         return torch.argmax(logits, -1)
-    eng = ServeEngine(api, max_len=SERVE_S + SERVE_NEW,
-                      batch_slots=SERVE_B, sampler=sampler)
+    max_len = n_vis + prompt_len + SERVE_NEW
+    eng = ServeEngine(api, max_len=max_len, batch_slots=SERVE_B,
+                      sampler=sampler)
     eng.load(model)
     reqs = [Request(prompt=p, max_new_tokens=SERVE_NEW) for p in prompts]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = ssd.LAUNCHES = 0
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa.LAUNCHES, "ssd_chunk": ssd.LAUNCHES}
+    with blocks.record_routes() as routes:
+        fa.LAUNCHES = ssd.LAUNCHES = 0
+        t0 = time.perf_counter()
+        eng.run(reqs, extra_batch=extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": fa.LAUNCHES,
+                    "ssd_chunk": ssd.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(r.out) for r in reqs)
-    print(f"serve: {SERVE_REQS} requests x {SERVE_S} prompt tokens, "
-          f"{SERVE_NEW} new each, {SERVE_B} slots: {wall:.3f} s wall, "
-          f"{n_tok} tokens, {n_tok / wall:.2f} generated tokens/s, "
-          f"{SERVE_REQS * (SERVE_S + SERVE_NEW) / wall:.1f} tokens/s "
+    extra_txt = "".join(f", {k} {tuple(v.shape)}" for k, v in extra.items())
+    print(f"serve: {SERVE_REQS} requests x {prompt_len} prompt tokens"
+          f"{extra_txt}, {SERVE_NEW} new each, {SERVE_B} slots: {wall:.3f} s "
+          f"wall, {n_tok} tokens, {n_tok / wall:.2f} generated tokens/s, "
+          f"{SERVE_REQS * (prompt_len + SERVE_NEW) / wall:.1f} tokens/s "
           f"prompt+generated; launches flash {launches['flash_attention']}, "
           f"ssd_chunk {launches['ssd_chunk']}; peak device memory "
           f"{peak / 2**30:.3f} GiB")
@@ -1101,24 +1262,37 @@ def phase_serve(dev, arch: str = "zamba2-1.2b",
           f"serve {arch}: every request got {SERVE_NEW} tokens")
     check(bool(finite), f"serve {arch}: every logit finite")
     n_waves = SERVE_REQS // SERVE_B
-    if cfg.family == "hybrid":
-        want = {"flash_attention": n_waves * (cfg.n_layers
-                                              // cfg.hybrid_attn_every),
-                "ssd_chunk": n_waves * cfg.n_layers}
-    else:
-        want = {"flash_attention": n_waves * cfg.n_layers, "ssd_chunk": 0}
+    want = {"flash_attention": n_waves * flash_per_prefill(cfg),
+            "ssd_chunk": n_waves * (cfg.n_layers if cfg.family in
+                                    ("ssm", "hybrid") else 0)}
     for name, n in want.items():
         check(launches[name] == n,
               f"serve {arch}: {name} launches {launches[name]} != {n}")
+    if cfg.family == "moe":
+        wave_tokens = SERVE_B * prompt_len
+        pre = [int(r["dropped"]) for r in routes
+               if r["tokens"] == wave_tokens]
+        dec = sum(int(r["dropped"]) for r in routes
+                  if r["tokens"] != wave_tokens)
+        check(len(pre) == n_waves * cfg.n_layers,
+              f"serve {arch}: {len(pre)} prefill MoE calls")
+        per_wave = [sum(pre[w * cfg.n_layers:(w + 1) * cfg.n_layers])
+                    for w in range(n_waves)]
+        slots = wave_tokens * cfg.top_k * cfg.n_layers
+        print(f"serve: dropped (token, k) slots per wave's prefill "
+              f"{per_wave} of {slots:,} ({cfg.n_layers} layers x "
+              f"{wave_tokens} tokens x top-{cfg.top_k}); in the decode steps "
+              f"{dec}")
 
     # per-phase device times for one wave (outside the counted run)
     toks = torch.as_tensor(prompts[:SERVE_B], dtype=torch.long, device=dev)
-    prefill_ms = event_ms(lambda: api.prefill(model, {"tokens": toks},
-                                              SERVE_S + SERVE_NEW),
+    batch = {"tokens": toks,
+             **{k: torch.as_tensor(v, device=dev) for k, v in extra.items()}}
+    prefill_ms = event_ms(lambda: api.prefill(model, batch, max_len),
                           reps=3, warmup=1)
-    _, cache = api.prefill(model, {"tokens": toks}, SERVE_S + SERVE_NEW)
+    _, cache = api.prefill(model, batch, max_len)
     nxt = toks[:, -1:]
-    pos = [SERVE_S]
+    pos = [n_vis + prompt_len]
 
     def step():
         api.decode(model, cache, nxt, pos[0])
@@ -1127,9 +1301,9 @@ def phase_serve(dev, arch: str = "zamba2-1.2b",
     steps = n_waves * (SERVE_NEW - 1)
     served_decode_ms = (wall * 1e3 - n_waves * prefill_ms) / steps
     print(f"serve: prefill {prefill_ms:.3f} ms per wave of "
-          f"{SERVE_B}x{SERVE_S}; decode {decode_ms:.3f} ms per step of "
-          f"{SERVE_B} tokens ({SERVE_B * 1e3 / decode_ms:.1f} tokens/s), "
-          f"both timed apart from the served run")
+          f"{SERVE_B}x{n_vis + prompt_len}; decode {decode_ms:.3f} ms per "
+          f"step of {SERVE_B} tokens ({SERVE_B * 1e3 / decode_ms:.1f} "
+          f"tokens/s), both timed apart from the served run")
     print(f"serve: the served run's decode, (wall - {n_waves} x prefill) / "
           f"{steps} steps: {served_decode_ms:.3f} ms per step")
     del model, cache, eng
@@ -1137,11 +1311,15 @@ def phase_serve(dev, arch: str = "zamba2-1.2b",
     return launches
 
 
-def phase_numeric(dev, arch: str, n_layers: int, B: int, S: int,
-                  seed: int) -> None:
-    """``arch`` at full width cut to ``n_layers`` layers, float32: the card
-    (kernels) against the CPU (plain versions), same weights: prefill
-    logits and 4 decode steps within ``NUMERIC_RTOL``·max|logits|."""
+def phase_numeric(dev, arch: str, n_layers: int | None, B: int, S: int,
+                  seed: int, routes: bool = False) -> None:
+    """``arch`` at full width (cut to ``n_layers`` layers when given),
+    float32: the card (kernels) against the CPU (plain versions), same
+    weights and the same seeded patch or frame prefix: prefill logits and 4
+    decode steps within ``NUMERIC_RTOL``·max|logits|. With ``routes`` (an
+    MoE model) every MoE call's top-k experts must first agree exactly
+    between card and CPU; prints the smallest gap between the k-th and the
+    (k+1)-th router probability."""
     import copy
     import dataclasses
 
@@ -1149,45 +1327,81 @@ def phase_numeric(dev, arch: str, n_layers: int, B: int, S: int,
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.models import lm
+    from repro_torch.models import blocks
     from repro_torch.models.registry import get_config, get_model
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
-                              dtype=torch.float32)
-    label = f"{arch} full width, {n_layers} layers"
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    label = (f"{arch} full width, "
+             + ("full depth" if n_layers is None else f"{n_layers} layers"))
     api = get_model(cfg, device=dev)
+    cpu_api = get_model(cfg, device="cpu")
+    t0 = time.perf_counter()
     model = api.init(torch.Generator(device=dev).manual_seed(seed))
     cpu_model = copy.deepcopy(model).cpu()
+    print(f"numeric: {label}: {api.count_params():,} float32 parameters, "
+          f"built on the card and copied to the CPU in "
+          f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(seed)
     steps = 4
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S + steps)),
                            dtype=torch.long)
+    extra = {k: torch.as_tensor(v)
+             for k, v in serve_extra(cfg, rng, B).items()}
+    n_vis = cfg.n_vis_tokens if cfg.family == "vlm" else 0
+    max_len = n_vis + S + steps
     t0 = time.perf_counter()
-    before = fa.LAUNCHES
-    lg, cache = lm.prefill(cfg, model, toks[:, :S].to(dev), S + steps)
-    flash = fa.LAUNCHES - before
-    lc, ccache = lm.prefill(cfg, cpu_model, toks[:, :S], S + steps)
-    pairs = [(lg.cpu(), lc)]
-    for i in range(S, S + steps):
-        lg, cache = lm.decode_step(cfg, model, cache, toks[:, i:i + 1].to(dev),
-                                   i)
-        lc, ccache = lm.decode_step(cfg, cpu_model, ccache, toks[:, i:i + 1],
-                                    i)
-        pairs.append((lg.cpu(), lc))
-    for n, (a, b) in enumerate(pairs):
+    sides = {}
+    for side, a, m, d in (("card", api, model, dev),
+                          ("cpu", cpu_api, cpu_model, "cpu")):
+        with blocks.record_routes() as moe_calls:
+            before = fa.LAUNCHES
+            batch = {"tokens": toks[:, :S].to(d),
+                     **{k: v.to(d) for k, v in extra.items()}}
+            lg, cache = a.prefill(m, batch, max_len)
+            flash = fa.LAUNCHES - before
+            logits = [lg.cpu()]
+            for i in range(S, S + steps):
+                lg, cache = a.decode(m, cache, toks[:, i:i + 1].to(d),
+                                     n_vis + i)
+                logits.append(lg.cpu())
+        sides[side] = (logits, moe_calls, flash)
+        del cache
+    (card, card_routes, flash), (cpu, cpu_routes, _) = sides["card"], \
+        sides["cpu"]
+    if routes:
+        check(len(card_routes) == len(cpu_routes) > 0,
+              f"{label}: {len(card_routes)} card and {len(cpu_routes)} CPU "
+              f"MoE calls")
+        k = cfg.top_k
+        gap = min(float((r["probs"][:, k - 1] - r["probs"][:, k]).min())
+                  for r in cpu_routes)
+        same = [torch.equal(a["top_idx"].cpu(), b["top_idx"])
+                for a, b in zip(card_routes, cpu_routes)]
+        print(f"numeric: {label}: top-{k} experts of {len(same)} MoE calls "
+              f"(prefill and decode, every layer) card vs CPU: "
+              f"{sum(same)} identical; smallest gap between a token's "
+              f"router probabilities ranked {k} and {k + 1}: {gap:.3e}")
+        check(all(same), f"{label}: the card's routing differs from the "
+                         f"CPU's in {len(same) - sum(same)} MoE calls")
+    for n, (a, b) in enumerate(zip(card, cpu)):
         scale = float(b.abs().max())
         err = float((a - b).abs().max())
         what = "prefill" if n == 0 else f"decode step {n}"
         check(bool(torch.isfinite(a).all()), f"{label} {what}: finite")
         check(err <= NUMERIC_RTOL * scale, f"{label} {what}: max|Δ| {err} > "
                                            f"{NUMERIC_RTOL} x {scale}")
-        print(f"numeric: {label}, f32, B{B} S{S}, "
-              f"{what}: card vs CPU max|Δ| {err:.3e} (max|logit| "
+        print(f"numeric: {label}, f32, B{B} S{S}"
+              + (f" + {n_vis} patch positions" if n_vis else "")
+              + f", {what}: card vs CPU max|Δ| {err:.3e} (max|logit| "
               f"{scale:.3e}, tol {NUMERIC_RTOL}x)")
     print(f"numeric: {label}: float32 flash launches in the card's prefill "
           f"{flash}; done in {time.perf_counter() - t0:.2f} s")
-    check(flash > 0, f"{label}: the card's prefill launched no flash kernel")
-    del model, cpu_model, cache, ccache
+    check(flash == flash_per_prefill(cfg),
+          f"{label}: the card's prefill launched {flash} flash kernels, not "
+          f"{flash_per_prefill(cfg)}")
+    del model, cpu_model
     torch.cuda.empty_cache()
 
 

@@ -12,10 +12,18 @@ Conventions, as in the JAX package:
 The SSD core of :func:`mamba2_forward` goes through
 :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan` (the chunk kernel plus the
 inter-chunk recurrence) instead of repeating the JAX package's in-line chunk
-scan.
+scan, and :func:`cross_attention` without a mask goes through the
+flash-attention kernel (non-causal).
+
+:func:`moe_ffn` keeps the JAX package's capacity dispatch with every index
+step made deterministic: top-k from a stable descending sort (lower expert
+first on ties, as ``jax.lax.top_k``), a stable sort of the slots by expert,
+and a combine that gathers each (token, k) slot's buffer row and sums over
+k in a fixed order instead of scatter-adding (no atomics on the card).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -23,6 +31,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
 NEG_INF = -1e30
@@ -46,16 +55,15 @@ def _leaves(tree) -> list[ParamSpec]:
     return [leaf for sub in items for leaf in _leaves(sub)]
 
 
-def build_params(generator: torch.Generator, specs, device) -> Any:
+def build_params(generator: torch.Generator, specs, device,
+                 finish=None) -> Any:
     """A tree of float32 tensors on ``device`` in the layout of ``specs``
     (nested dicts and lists of :class:`ParamSpec`), drawn from
     ``generator`` leaf by leaf in tree order: normal·scale, "small" =
-    normal·scale/√(last dim), zeros or ones."""
-    def build(s):
-        if isinstance(s, dict):
-            return {k: build(v) for k, v in s.items()}
-        if isinstance(s, list):
-            return [build(v) for v in s]
+    normal·scale/√(last dim), zeros or ones. ``finish(path, tensor)``, if
+    given, maps each leaf as soon as it is drawn (a cast to the dtype the
+    model holds, so that the float32 tree never exists whole)."""
+    def draw(s):
         if s.init == "zeros":
             return torch.zeros(s.shape, dtype=torch.float32, device=device)
         if s.init == "ones":
@@ -65,7 +73,14 @@ def build_params(generator: torch.Generator, specs, device) -> Any:
         if s.init == "small":
             return w * (s.scale / math.sqrt(max(s.shape[-1], 1)))
         return w * s.scale
-    return build(specs)
+
+    def build(s, path):
+        if isinstance(s, dict):
+            return {k: build(v, (*path, k)) for k, v in s.items()}
+        if isinstance(s, list):
+            return [build(v, (*path, i)) for i, v in enumerate(s)]
+        return draw(s) if finish is None else finish(path, draw(s))
+    return build(specs, ())
 
 
 def count_specs(specs) -> int:
@@ -195,6 +210,33 @@ def causal_mask(S: int, T: int, offset: int = 0, device=None):
     return (j <= i)[None, None, None]
 
 
+def cross_attention(p, x, kv_cached, mask=None):
+    """Encoder-decoder cross attention (whisper). kv_cached = (k, v) from
+    the encoder output projections; no RoPE. Without a mask every query
+    sees every key, through the flash-attention kernel (non-causal); with
+    one (decode), through :func:`gqa_attend`."""
+    dt = x.dtype
+    q = _heads_proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+    k, v = kv_cached
+    if mask is None:
+        out = flash_attention(q, k, v, causal=False)
+    else:
+        out = gqa_attend(q, k, v, mask)
+    return out_proj(out, p["wo"])
+
+
+def cross_kv(p, enc_out):
+    dt = enc_out.dtype
+    k = _heads_proj(enc_out, p["wk"])
+    v = _heads_proj(enc_out, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return k, v
+
+
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
@@ -221,6 +263,128 @@ def mlp(p, x, act: str = "swiglu"):
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p["w_in"].to(dt) + p["b_in"].to(dt), approximate="tanh")
     return h @ p["w_out"].to(dt) + p["b_out"].to(dt)
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts (top-k router, sort-based capacity dispatch)
+# --------------------------------------------------------------------------
+def moe_specs(d_model: int, d_ff: int, n_experts: int) -> dict:
+    return {
+        "router": ParamSpec((d_model, n_experts), ("embed", "experts")),
+        "w_gate": ParamSpec((n_experts, d_model, d_ff),
+                            ("experts", "embed", "expert_mlp"), "small"),
+        "w_up": ParamSpec((n_experts, d_model, d_ff),
+                          ("experts", "embed", "expert_mlp"), "small"),
+        "w_down": ParamSpec((n_experts, d_ff, d_model),
+                            ("experts", "expert_mlp", "embed"), "small"),
+    }
+
+
+# The list that moe_ffn calls append their routing to while
+# :func:`record_routes` is active, else None.
+ROUTES: list | None = None
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Within the block, each :func:`moe_ffn` call appends a dict of its
+    routing to the list this yields (tensors, left on the input's device):
+    ``top_idx`` [T,K], ``probs`` the top K+1 router probabilities [T,K+1]
+    (descending), ``dropped`` the number of (token, k) slots past their
+    expert's capacity, and ``tokens`` T."""
+    global ROUTES
+    prev, ROUTES = ROUTES, []
+    try:
+        yield ROUTES
+    finally:
+        ROUTES = prev
+
+
+def moe_ffn(p, x, n_experts: int, top_k: int, capacity_factor: float = 1.25):
+    """Token-choice top-k MoE with sort-based capacity dispatch.
+
+    The JAX package splits the tokens into G groups, one per shard of the
+    batch axis; outside a mesh (the port has none yet) ``shard_count
+    ("batch")`` is 1, so here G = 1 and the token dim is not split.
+
+    Per-expert capacity C = max(ceil(top_k·T/E · cap_factor), top_k);
+    overflow slots are dropped for that expert (Switch/GShard semantics).
+    Every expert runs over its C buffer rows, used or not, as in the JAX
+    package. Returns (out, aux_loss).
+    """
+    dt = x.dtype
+    B, S, D = x.shape
+    T = B * S
+    E, K = n_experts, top_k
+    C = max(int(math.ceil(K * T / E * capacity_factor)), K)
+    dev = x.device
+
+    xf = x.reshape(T, D)
+    logits = (xf @ p["router"].to(dt)).float()                   # [T,E]
+    probs = torch.softmax(logits, dim=-1)
+    # stable descending sort: on equal probabilities the lower expert comes
+    # first, as jax.lax.top_k returns it (torch.topk promises no order)
+    sorted_p, sorted_idx = torch.sort(probs, dim=-1, descending=True,
+                                      stable=True)
+    top_p, top_idx = sorted_p[:, :K], sorted_idx[:, :K]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    # ---- sort (token, k)-slots by expert id ----------------------------
+    expert_flat = top_idx.reshape(T * K)
+    order = torch.argsort(expert_flat, stable=True)              # [T*K]
+    tok_sorted = order // K
+    exp_sorted = expert_flat[order]
+    gate_sorted = top_p.reshape(T * K)[order]
+    # position of each slot within its expert's run
+    seg_start = torch.searchsorted(exp_sorted,
+                                   torch.arange(E, device=dev), side="left")
+    pos_in_e = torch.arange(T * K, device=dev) - seg_start[exp_sorted]
+    keep = pos_in_e < C                                          # capacity
+
+    # ---- gather tokens to [E, C, D] ------------------------------------
+    # row E*C is the trash row: every dropped slot writes there (torch does
+    # not say which write wins), and it is sliced off
+    slot = torch.where(keep, exp_sorted * C + pos_in_e, E * C)
+
+    def fill(val, dtype):
+        buf = torch.zeros(E * C + 1, dtype=dtype, device=dev)
+        return buf.scatter_(0, slot, val.to(dtype))[:E * C].reshape(E, C)
+
+    src_tok = fill(tok_sorted, torch.long)
+    src_gate = fill(torch.where(keep, gate_sorted, 0.0), torch.float32)
+    src_valid = fill(keep, torch.float32)
+
+    xe = xf[src_tok.reshape(E * C)].reshape(E, C, D)
+    xe = xe * src_valid[..., None].to(dt)
+
+    # ---- expert FFN -----------------------------------------------------
+    h = silu(torch.bmm(xe, p["w_gate"].to(dt)))
+    h = h * torch.bmm(xe, p["w_up"].to(dt))
+    out_e = torch.bmm(h, p["w_down"].to(dt))
+    out_e = out_e * src_gate[..., None].to(dt)
+
+    # ---- combine: each (token, k) slot reads its buffer row ------------
+    # (the zero row E*C for a dropped slot) and the K rows are summed in
+    # k order, in x.dtype; no scatter-add, so the bits do not depend on
+    # the order of atomics
+    row_of_slot = torch.empty(T * K, dtype=torch.long, device=dev)
+    row_of_slot[order] = slot
+    rows = torch.cat([out_e.reshape(E * C, D),
+                      torch.zeros(1, D, dtype=dt, device=dev)])
+    picked = rows[row_of_slot].reshape(T, K, D)
+    out = picked[:, 0]
+    for k in range(1, K):
+        out = out + picked[:, k]
+    out = out.reshape(B, S, D)
+
+    # load-balancing aux loss (Switch-style, global mean)
+    me = probs.mean(dim=0)                                       # [E]
+    ce = torch.bincount(expert_flat, minlength=E).float() / T
+    aux = E * torch.sum(me * ce / K)
+    if ROUTES is not None:
+        ROUTES.append(dict(top_idx=top_idx, probs=sorted_p[:, :K + 1],
+                           dropped=(~keep).sum(), tokens=T))
+    return out, aux.float()
 
 
 # --------------------------------------------------------------------------

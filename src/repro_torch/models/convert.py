@@ -1,9 +1,12 @@
-"""Carry a JAX parameter tree across into the port's :class:`LM`.
+"""Carry a JAX parameter tree across into the port's :class:`LM` (or
+:class:`Whisper`).
 
-The JAX package stacks layers on leading axes — ``layers`` [L, …], a
-hybrid's ``groups`` [G, per, …] and ``tail`` [rem, …] — and keeps the shared
-block, the embedding and the final norm unstacked. The port holds one
-module per layer, so the stacks are cut apart here. The tree arrives as
+The JAX package stacks layers on leading axes — ``layers`` [L, …] (an MoE
+layer's experts then sit at [L, E, …]), a hybrid's ``groups`` [G, per, …]
+and ``tail`` [rem, …], whisper's ``enc_layers`` and ``dec_layers`` — and
+keeps the shared block, the embedding, ``vis_proj``, ``frame_proj`` and the
+norms unstacked. The port holds one module per layer, so the stacks are cut
+apart here. The tree arrives as
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``), so this
 module imports nothing of JAX.
 """
@@ -14,7 +17,11 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import ParamSpec
-from repro_torch.models.lm import LM, model_specs
+from repro_torch.models.lm import LM
+from repro_torch.models.registry import model_specs
+from repro_torch.models.whisper import Whisper
+
+_STACKS = ("layers", "tail", "enc_layers", "dec_layers")
 
 
 def _unstack(tree: dict, i: int) -> dict:
@@ -42,22 +49,28 @@ def _to_tensors(tree, specs, device, path: str = ""):
             for k, s in specs.items()}
 
 
-def params_from_jax(cfg, tree: dict, device=None) -> LM:
+def _depth(stack: dict) -> int:
+    """The leading (layer) axis of a stacked subtree."""
+    leaf = stack
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return np.shape(leaf)[0]
+
+
+def params_from_jax(cfg, tree: dict, device=None) -> LM | Whisper:
     """The port's model holding exactly the values of a JAX parameter tree
-    (``repro.models.lm.init_params`` layout, leaves as numpy arrays), on
-    ``device`` (default: the CUDA card; pass ``"cpu"`` to run without one)."""
+    (``repro.models.lm.init_params`` or ``repro.models.whisper.init_params``
+    layout, leaves as numpy arrays), on ``device`` (default: the CUDA card;
+    pass ``"cpu"`` to run without one)."""
     device = resolve_device(device)
-    port = {k: v for k, v in tree.items()
-            if k not in ("layers", "groups", "tail")}
-    if "layers" in tree:
-        port["layers"] = [_unstack(tree["layers"], i)
-                          for i in range(cfg.n_layers)]
+    port = {k: v for k, v in tree.items() if k not in (*_STACKS, "groups")}
+    for k in _STACKS:
+        if k in tree:
+            port[k] = [_unstack(tree[k], i) for i in range(_depth(tree[k]))]
     if "groups" in tree:
-        n_groups = np.shape(tree["groups"]["norm"]["w"])[0]
         per = cfg.hybrid_attn_every
         port["groups"] = [[_unstack(_unstack(tree["groups"], g), i)
-                           for i in range(per)] for g in range(n_groups)]
-    if "tail" in tree:
-        rem = np.shape(tree["tail"]["norm"]["w"])[0]
-        port["tail"] = [_unstack(tree["tail"], i) for i in range(rem)]
-    return LM(cfg, _to_tensors(port, model_specs(cfg), device))
+                           for i in range(per)]
+                          for g in range(_depth(tree["groups"]))]
+    cls = Whisper if cfg.family == "encdec" else LM
+    return cls(cfg, _to_tensors(port, model_specs(cfg), device))

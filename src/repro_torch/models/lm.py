@@ -1,4 +1,5 @@
-"""Decoder LM for the dense, ssm and hybrid families, as ``nn.Module``s.
+"""Decoder LM for the dense, moe, ssm, hybrid and vlm families, as
+``nn.Module``s (the encdec family is ``repro_torch.models.whisper``).
 
 The JAX package's ``repro.models.lm`` keeps one stacked parameter tree and
 scans over layers; here each layer is a module of its own and the layers
@@ -8,11 +9,13 @@ held per layer instead of stacked on a leading axis.
 
 Families:
   dense  — pre-norm GQA attention + (SwiGLU|GELU) MLP
+  moe    — attention + top-k MoE FFN (sort-based capacity dispatch)
   ssm    — Mamba2/SSD blocks (attention-free)
   hybrid — Zamba2-style: Mamba2 backbone with one *shared* attention+MLP
            block applied every ``hybrid_attn_every`` layers
-The moe, vlm and encdec families are not ported yet (ROADMAP A.12) and
-raise ``NotImplementedError``.
+  vlm    — dense backbone with a prepended (stubbed) patch-embedding prefix
+  encdec — whisper (``repro_torch.models.whisper``), served through the
+           same registry
 
 Kernels: every prefill (and training-style forward) application of an
 attention block runs the flash-attention kernel at every sequence length
@@ -23,7 +26,9 @@ ops, as the JAX package leaves it to XLA.
 
 Weights that the JAX package casts to ``cfg.dtype`` where it uses them are
 cast once, when the module is built; the ones it reads in float32 stay
-float32: the norm weights, ``A_log``, ``D``, ``dt_bias`` and ``norm_w``.
+float32: the norm weights (qk-norm's too), ``A_log``, ``D``, ``dt_bias``
+and ``norm_w``. :func:`init_params` casts each weight as it is drawn, so
+the float32 tree never exists whole on the device.
 Decode updates the cache tensors in place (the JAX package returns new
 ones), so a cache is not reused after a later step.
 """
@@ -39,15 +44,17 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import blocks as B
 from repro_torch.models.blocks import ParamSpec
 
-FAMILIES = ("dense", "ssm", "hybrid")
-_NORMS = ("ln1", "ln2", "norm", "final_norm")          # norm weight dicts
-_F32_KEYS = ("A_log", "D", "dt_bias", "norm_w")        # read in float32
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
+# norm weight dicts (whisper's too)
+_NORMS = ("ln1", "ln2", "ln_x", "norm", "final_norm", "enc_norm")
+# read in float32
+_F32_KEYS = ("A_log", "D", "dt_bias", "norm_w", "q_norm", "k_norm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | ssm | hybrid (ported)
+    family: str                  # dense | moe | ssm | hybrid | vlm | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -58,9 +65,14 @@ class ModelConfig:
     act: str = "swiglu"
     norm: str = "rmsnorm"        # rmsnorm | layernorm
     qkv_bias: bool = False
+    qk_norm: bool = False        # qwen3-style per-head q/k RMSNorm
     rope_theta: float | None = 10000.0
     causal: bool = True
     tie_embeddings: bool = True
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     # ssm
     ssm_state: int = 0
     ssm_head_dim: int = 64
@@ -69,6 +81,10 @@ class ModelConfig:
     ssd_chunk: int = 128
     # hybrid
     hybrid_attn_every: int = 0
+    # encdec (whisper)
+    n_enc_layers: int = 0
+    # vlm
+    n_vis_tokens: int = 0
     # execution
     dtype: torch.dtype = torch.bfloat16
 
@@ -89,9 +105,13 @@ class ModelConfig:
             d_ff=128,
             vocab=256,
             head_dim=16 if self.head_dim else None,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_head_dim=16 if self.ssm_state else 64,
             hybrid_attn_every=3 if self.hybrid_attn_every else 0,
+            n_enc_layers=min(self.n_enc_layers, 2),
+            n_vis_tokens=min(self.n_vis_tokens, 8),
             dtype=torch.float32,
         )
         small.update(over)
@@ -100,9 +120,11 @@ class ModelConfig:
 
 def _check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP A.12); the "
-            f"port serves {', '.join(FAMILIES)}")
+        raise ValueError(f"unknown family {cfg.family!r}; the port serves "
+                         f"{', '.join(FAMILIES)}")
+    if cfg.family == "encdec":
+        raise ValueError("the encdec family is served by "
+                         "repro_torch.models.whisper, not the decoder LM")
 
 
 # --------------------------------------------------------------------------
@@ -122,6 +144,15 @@ def _apply_norm(cfg, p, x):
     return B.rms_norm(x, p["w"])
 
 
+def _attn_specs(cfg):
+    s = B.attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                     cfg.qkv_bias)
+    if cfg.qk_norm:
+        s["q_norm"] = ParamSpec((cfg.hd,), (None,), "ones")
+        s["k_norm"] = ParamSpec((cfg.hd,), (None,), "ones")
+    return s
+
+
 def layer_specs(cfg) -> dict:
     _check_family(cfg)
     if cfg.family == "ssm":
@@ -131,13 +162,16 @@ def layer_specs(cfg) -> dict:
                                     cfg.ssm_head_dim, cfg.ssm_expand,
                                     cfg.ssm_conv),
         }
-    return {
+    s = {
         "ln1": _norm_specs(cfg),
-        "attn": B.attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.hd, cfg.qkv_bias),
+        "attn": _attn_specs(cfg),
         "ln2": _norm_specs(cfg),
-        "mlp": B.mlp_specs(cfg.d_model, cfg.d_ff, cfg.act),
     }
+    if cfg.family == "moe":
+        s["moe"] = B.moe_specs(cfg.d_model, cfg.d_ff, cfg.n_experts)
+    else:
+        s["mlp"] = B.mlp_specs(cfg.d_model, cfg.d_ff, cfg.act)
+    return s
 
 
 def _hybrid_split(cfg) -> tuple[int, int, int]:
@@ -165,12 +199,26 @@ def model_specs(cfg) -> dict:
             s["tail"] = [ssm] * rem
     else:
         s["layers"] = [layer_specs(cfg)] * cfg.n_layers
+    if cfg.family == "vlm":
+        # stubbed modality frontend: a trained projection of precomputed
+        # patch embeddings into the LM's embedding space
+        s["vis_proj"] = ParamSpec((cfg.d_model, cfg.d_model),
+                                  ("embed", "embed_act"), "small")
     return s
 
 
 # --------------------------------------------------------------------------
 # modules
 # --------------------------------------------------------------------------
+def leaf_dtype(cfg, path) -> torch.dtype:
+    """The dtype a module holds the weight at ``path`` (its keys in the
+    parameter tree) in: float32 for the norms and the weights the JAX
+    package reads in float32, else ``cfg.dtype``."""
+    if path[-1] in _F32_KEYS or any(k in _NORMS for k in path):
+        return torch.float32
+    return cfg.dtype
+
+
 def _param_dict(tree: dict, dtype, keep_f32: bool) -> nn.ParameterDict:
     return nn.ParameterDict({
         k: nn.Parameter(v.to(torch.float32 if keep_f32 or k in _F32_KEYS
@@ -193,8 +241,14 @@ class Mamba2Layer(_Layer):
 
 
 class DenseLayer(_Layer):
-    """An attention + MLP layer (also the hybrid's shared block): ``ln1``,
-    ``attn`` {wq, wk, wv, wo[, bq, bk, bv]}, ``ln2``, ``mlp``."""
+    """An attention + MLP layer (also the hybrid's shared block and a
+    whisper encoder layer): ``ln1``, ``attn`` {wq, wk, wv, wo[, bq, bk, bv]
+    [, q_norm, k_norm]}, ``ln2``, ``mlp``."""
+
+
+class MoELayer(_Layer):
+    """An attention + MoE layer: ``ln1``, ``attn``, ``ln2``, ``moe``
+    {router [D,E], w_gate, w_up [E,D,F], w_down [E,F,D]}."""
 
 
 class LM(nn.Module):
@@ -213,6 +267,9 @@ class LM(nn.Module):
         self.unembed = (nn.Parameter(tree["unembed"].to(dt),
                                      requires_grad=False)
                         if "unembed" in tree else None)
+        self.vis_proj = (nn.Parameter(tree["vis_proj"].to(dt),
+                                      requires_grad=False)
+                         if "vis_proj" in tree else None)
         if cfg.family == "hybrid":
             self.groups = nn.ModuleList(
                 nn.ModuleList(Mamba2Layer(p, dt) for p in g)
@@ -221,26 +278,39 @@ class LM(nn.Module):
             self.tail = nn.ModuleList(Mamba2Layer(p, dt)
                                       for p in tree.get("tail", []))
         else:
-            cls = Mamba2Layer if cfg.family == "ssm" else DenseLayer
+            cls = {"ssm": Mamba2Layer, "moe": MoELayer}.get(cfg.family,
+                                                            DenseLayer)
             self.layers = nn.ModuleList(cls(p, dt) for p in tree["layers"])
 
-    def forward(self, tokens):
-        return forward(self.cfg, self, tokens)
+    def forward(self, tokens, vis_embeds=None):
+        return forward(self.cfg, self, tokens, vis_embeds)
 
 
 def init_params(cfg, generator: torch.Generator, device) -> LM:
     """Random weights from ``generator`` on ``device``, with the JAX
-    package's init distributions."""
-    return LM(cfg, B.build_params(generator, model_specs(cfg), device))
+    package's init distributions, each cast as it is drawn."""
+    return LM(cfg, B.build_params(
+        generator, model_specs(cfg), device,
+        lambda path, w: w.to(leaf_dtype(cfg, path))))
 
 
 # --------------------------------------------------------------------------
 # blocks (single layer)
 # --------------------------------------------------------------------------
+def _maybe_qk_norm(cfg, p, q, k):
+    """Qwen3's per-head q/k RMSNorm, after RoPE as the JAX package applies
+    it (``qkv_proj`` rotates first)."""
+    if cfg.qk_norm:
+        q = B.rms_norm(q, p["q_norm"])
+        k = B.rms_norm(k, p["k_norm"])
+    return q, k
+
+
 def _attn_block(cfg, p, x, positions):
     h = _apply_norm(cfg, p["ln1"], x)
     q, k, v = B.qkv_proj(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
                          cfg.rope_theta, positions)
+    q, k = _maybe_qk_norm(cfg, p["attn"], q, k)
     o = flash_attention(q, k, v, causal=cfg.causal)
     return x + B.out_proj(o, p["attn"]["wo"]), (k, v)
 
@@ -252,6 +322,7 @@ def _attn_block_decode(cfg, p, x, cache_k, cache_v, pos: int):
     positions = torch.full((x.shape[0], 1), pos, device=x.device)
     q, k_new, v_new = B.qkv_proj(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
                                  cfg.rope_theta, positions)
+    q, k_new = _maybe_qk_norm(cfg, p["attn"], q, k_new)
     T = cache_k.shape[1]
     slot = pos % T
     cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
@@ -262,13 +333,21 @@ def _attn_block_decode(cfg, p, x, cache_k, cache_v, pos: int):
 
 
 def _ffn_block(cfg, p, x):
+    """Returns (x, aux): the MoE load-balancing loss, or None."""
     h = _apply_norm(cfg, p["ln2"], x)
-    return x + B.mlp(p["mlp"], h, cfg.act)
+    if cfg.family == "moe":
+        o, aux = B.moe_ffn(p["moe"], h, cfg.n_experts, cfg.top_k,
+                           cfg.capacity_factor)
+    else:
+        o, aux = B.mlp(p["mlp"], h, cfg.act), None
+    return x + o, aux
 
 
 def dense_layer(cfg, p, x, positions):
+    """Returns (x, (k, v), aux)."""
     x, kv = _attn_block(cfg, p, x, positions)
-    return _ffn_block(cfg, p, x), kv
+    x, aux = _ffn_block(cfg, p, x)
+    return x, kv, aux
 
 
 def ssm_layer(cfg, p, x):
@@ -294,6 +373,18 @@ def ssm_layer_decode(cfg, p, x, conv_state, ssm_state):
 # --------------------------------------------------------------------------
 # full model: forward, prefill, decode
 # --------------------------------------------------------------------------
+def _embed(cfg, params, tokens, vis_embeds=None):
+    """Token embeddings [B,S,D]; for vlm the projected patch embeddings
+    [B,n_vis,D] come first: [B,n_vis+S,D]."""
+    x = params.embed.to(cfg.dtype)[tokens]
+    if cfg.family == "vlm":
+        if vis_embeds is None:
+            raise ValueError("vlm needs patch embeddings (vis_embeds)")
+        v = vis_embeds.to(cfg.dtype) @ params.vis_proj.to(cfg.dtype)
+        x = torch.cat([v, x], dim=1)
+    return x
+
+
 def _logits(cfg, params, x):
     x = _apply_norm(cfg, params.final_norm, x)
     w = params.embed.T if cfg.tie_embeddings else params.unembed
@@ -301,10 +392,14 @@ def _logits(cfg, params, x):
 
 
 @torch.no_grad()
-def forward(cfg, params: LM, tokens):
-    """Full-sequence forward: tokens [B,S] -> logits [B,S,V]."""
-    x = params.embed.to(cfg.dtype)[tokens]
+def forward(cfg, params: LM, tokens, vis_embeds=None,
+            return_aux: bool = False):
+    """Full-sequence forward: tokens [B,S] -> logits [B,S(+vis),V]; with
+    ``return_aux`` (logits, the MoE aux loss summed over layers, float32,
+    0 for the other families)."""
+    x = _embed(cfg, params, tokens, vis_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         for p in params.layers:
             x = ssm_layer(cfg, p, x)
@@ -312,13 +407,16 @@ def forward(cfg, params: LM, tokens):
         for group in params.groups:
             for p in group:
                 x = ssm_layer(cfg, p, x)
-            x, _ = dense_layer(cfg, params.shared, x, positions)
+            x, _, _ = dense_layer(cfg, params.shared, x, positions)
         for p in params.tail:
             x = ssm_layer(cfg, p, x)
     else:
         for p in params.layers:
-            x, _ = dense_layer(cfg, p, x, positions)
-    return _logits(cfg, params, x)
+            x, _, aux_l = dense_layer(cfg, p, x, positions)
+            if aux_l is not None:
+                aux = aux + aux_l
+    logits = _logits(cfg, params, x)
+    return (logits, aux) if return_aux else logits
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device) -> dict:
@@ -358,16 +456,18 @@ def init_cache(cfg, batch: int, max_len: int, *, device) -> dict:
 
 
 @torch.no_grad()
-def prefill(cfg, params: LM, tokens, max_len: int):
+def prefill(cfg, params: LM, tokens, max_len: int, vis_embeds=None):
     """Full-sequence forward that also fills the decode cache.
 
     Returns (logits [B,1,V] at the last position, cache); KV buffers hold
-    ``max_len`` positions."""
-    x = params.embed.to(cfg.dtype)[tokens]
+    ``max_len`` positions (for vlm the patch prefix takes the first
+    ``n_vis``)."""
+    x = _embed(cfg, params, tokens, vis_embeds)
     Bsz, S = x.shape[0], x.shape[1]
     if S > max_len:
-        raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
-    if cfg.family != "dense" and S < cfg.ssm_conv - 1:
+        raise ValueError(f"prompt of {S} positions exceeds max_len "
+                         f"{max_len}")
+    if cfg.family in ("ssm", "hybrid") and S < cfg.ssm_conv - 1:
         raise ValueError(f"prompt of {S} tokens is shorter than the conv "
                          f"state ({cfg.ssm_conv - 1})")
     positions = torch.arange(S, device=x.device)[None, :]
@@ -382,7 +482,7 @@ def prefill(cfg, params: LM, tokens, max_len: int):
 
     def run_dense(p, c, i):
         nonlocal x
-        x, (k, v) = dense_layer(cfg, p, x, positions)
+        x, (k, v), _ = dense_layer(cfg, p, x, positions)
         c["k"][i, :, :S] = k
         c["v"][i, :, :S] = v
 
@@ -402,8 +502,9 @@ def prefill(cfg, params: LM, tokens, max_len: int):
 
 @torch.no_grad()
 def decode_step(cfg, params: LM, cache: dict, tokens, pos):
-    """One decode step. tokens [B,1]; pos: the absolute position (int).
-    Returns (logits [B,1,V], cache), the cache updated in place."""
+    """One decode step. tokens [B,1]; pos: the absolute position (int,
+    counting a vlm's patch prefix). Returns (logits [B,1,V], cache), the
+    cache updated in place."""
     pos = int(pos)
     x = params.embed.to(cfg.dtype)[tokens]
 
@@ -418,7 +519,7 @@ def decode_step(cfg, params: LM, cache: dict, tokens, pos):
     def run_dense(p, c, i):
         nonlocal x
         x, _ = _attn_block_decode(cfg, p, x, c["k"][i], c["v"][i], pos)
-        x = _ffn_block(cfg, p, x)
+        x, _ = _ffn_block(cfg, p, x)
 
     if cfg.family == "ssm":
         run_ssm(params.layers, cache)

@@ -1,12 +1,16 @@
 """Architecture registry: name -> uniform model API, as the JAX package's
-``repro.models.registry`` for the families the port serves:
+``repro.models.registry``:
 
     api = get_model(cfg)                   # on the card unless device="cpu"
-    params = api.init(generator)           # an LM, weights on api.device
+    params = api.init(generator)           # an LM or Whisper on api.device
     api.forward(params, batch)             -> logits [B,S,V]
     api.prefill(params, batch, max_len)    -> (logits [B,1,V], cache)
     api.decode(params, cache, tokens, pos) -> (logits [B,1,V], cache)
-    api.init_cache(batch, max_len) / api.count_params()
+    api.init_cache(batch, max_len) / api.count_params() / api.active_params()
+
+``batch`` holds ``tokens``, plus ``vis_embeds`` [B,n_vis,D] for the vlm
+family and ``frames`` [B,T,D] for encdec. ``forward`` returns logits only
+(the JAX API's ``(logits, aux)``: see ``lm.forward(..., return_aux=True)``).
 """
 from __future__ import annotations
 
@@ -16,43 +20,98 @@ from typing import Callable
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import lm, whisper
 from repro_torch.models.blocks import count_specs
 from repro_torch.models.lm import ModelConfig
+
+# the cross-attention length of the encdec API's init_cache: whisper's 30 s
+# window after the conv stack
+WHISPER_FRAMES = 1500
+
+
+def model_specs(cfg: ModelConfig) -> dict:
+    """The spec tree of ``cfg``'s model (whisper's for encdec)."""
+    if cfg.family == "encdec":
+        return whisper.model_specs(cfg)
+    return lm.model_specs(cfg)
 
 
 @dataclasses.dataclass
 class ModelApi:
     cfg: ModelConfig
     device: torch.device
-    init: Callable          # (torch.Generator) -> LM on device
+    init: Callable          # (torch.Generator) -> LM or Whisper on device
     forward: Callable       # (params, batch) -> logits
     prefill: Callable       # (params, batch, max_len) -> (logits, cache)
     decode: Callable        # (params, cache, tokens, pos) -> (logits, cache)
     init_cache: Callable    # (batch, max_len) -> cache
 
     def count_params(self) -> int:
-        return count_specs(lm.model_specs(self.cfg))
+        return count_specs(model_specs(self.cfg))
+
+    def active_params(self) -> int:
+        """Per-token active parameters (MoE: only top-k experts)."""
+        cfg = self.cfg
+        total = self.count_params()
+        if cfg.family != "moe" or not cfg.n_experts:
+            return total
+        expert = 3 * cfg.d_model * cfg.d_ff  # gate/up/down per expert
+        inactive = cfg.n_layers * (cfg.n_experts - cfg.top_k) * expert
+        return total - inactive
+
+
+def _vis_frames(cfg, seq_len: int) -> int:
+    """The stub frontend's prefix length at a prompt of ``seq_len``: encdec
+    frames scale with the tokens, capped at whisper's 30 s window; vlm
+    patch tokens are fixed by the config."""
+    if cfg.family == "encdec":
+        return min(WHISPER_FRAMES, max(128, seq_len // 2))
+    return cfg.n_vis_tokens
+
+
+def _lm_api(cfg: ModelConfig, dev: torch.device) -> ModelApi:
+    def vis(batch):
+        return batch["vis_embeds"] if cfg.family == "vlm" else None
+
+    return ModelApi(
+        cfg=cfg,
+        device=dev,
+        init=lambda generator: lm.init_params(cfg, generator, dev),
+        forward=lambda params, batch: lm.forward(
+            cfg, params, batch["tokens"], vis_embeds=vis(batch)),
+        prefill=lambda params, batch, max_len: lm.prefill(
+            cfg, params, batch["tokens"], max_len, vis_embeds=vis(batch)),
+        decode=lambda params, cache, tokens, pos: lm.decode_step(
+            cfg, params, cache, tokens, pos),
+        init_cache=lambda batch, max_len: lm.init_cache(
+            cfg, batch, max_len, device=dev),
+    )
+
+
+def _whisper_api(cfg: ModelConfig, dev: torch.device) -> ModelApi:
+    return ModelApi(
+        cfg=cfg,
+        device=dev,
+        init=lambda generator: whisper.init_params(cfg, generator, dev),
+        forward=lambda params, batch: whisper.forward(
+            cfg, params, batch["tokens"], batch["frames"]),
+        prefill=lambda params, batch, max_len: whisper.prefill(
+            cfg, params, batch["tokens"], batch["frames"], max_len),
+        decode=lambda params, cache, tokens, pos: whisper.decode_step(
+            cfg, params, cache, tokens, pos),
+        init_cache=lambda batch, max_len: whisper.init_cache(
+            cfg, batch, max_len, n_frames=WHISPER_FRAMES, device=dev),
+    )
 
 
 def get_model(cfg: ModelConfig, device=None) -> ModelApi:
     """The model API on ``device``: the CUDA card unless the caller asks
     for another device (raises without a card)."""
     dev = resolve_device(device)
-    lm.model_specs(cfg)            # raises for families not ported yet
-    return ModelApi(
-        cfg=cfg,
-        device=dev,
-        init=lambda generator: lm.init_params(cfg, generator, dev),
-        forward=lambda params, batch: lm.forward(cfg, params,
-                                                 batch["tokens"]),
-        prefill=lambda params, batch, max_len: lm.prefill(
-            cfg, params, batch["tokens"], max_len),
-        decode=lambda params, cache, tokens, pos: lm.decode_step(
-            cfg, params, cache, tokens, pos),
-        init_cache=lambda batch, max_len: lm.init_cache(
-            cfg, batch, max_len, device=dev),
-    )
+    model_specs(cfg)               # raises for an unknown family
+    if cfg.family == "encdec":
+        return _whisper_api(cfg, dev)
+    return _lm_api(cfg, dev)
 
 
 # ---- config registry -------------------------------------------------------

@@ -37,28 +37,36 @@ class ServeEngine:
         self.sampler = sampler or (lambda logits: torch.argmax(logits, -1))
         self._params = None
 
-    def run(self, requests: list[Request]) -> list[Request]:
+    def run(self, requests: list[Request],
+            extra_batch: dict | None = None) -> list[Request]:
         """Serve all requests, ``batch_slots`` at a time (one prompt length
-        per wave: the batched prefill does not pad)."""
+        per wave: the batched prefill does not pad). ``extra_batch`` goes
+        into every wave's prefill beside the tokens, as in the JAX engine:
+        ``{"vis_embeds": [B,n_vis,D]}`` for vlm, ``{"frames": [B,T,D]}`` for
+        encdec (arrays or tensors, moved to the engine's device)."""
         if self._params is None:
             raise RuntimeError("ServeEngine.run before load()")
+        extra = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in (extra_batch or {}).items()}
         queue = list(requests)
         while queue:
             wave = queue[: self.slots]
             queue = queue[self.slots:]
-            self._run_wave(wave)
+            self._run_wave(wave, extra)
         return requests
 
-    def _run_wave(self, wave: list[Request]) -> None:
+    def _run_wave(self, wave: list[Request], extra_batch: dict) -> None:
         B = len(wave)
         S = len(wave[0].prompt)
         if any(len(r.prompt) != S for r in wave):
             raise ValueError("a wave's prompts must share one length")
         tokens = torch.as_tensor(np.stack([r.prompt for r in wave]),
                                  dtype=torch.long, device=self.device)
-        logits, cache = self.api.prefill(self._params, {"tokens": tokens},
-                                         self.max_len)
-        pos = S
+        logits, cache = self.api.prefill(
+            self._params, {"tokens": tokens, **extra_batch}, self.max_len)
+        cfg = self.api.cfg
+        # decode positions count a vlm's patch prefix
+        pos = S + (cfg.n_vis_tokens if cfg.family == "vlm" else 0)
         next_tok = self.sampler(logits[:, -1])
         for i, t in enumerate(next_tok.tolist()):
             wave[i].out.append(int(t))

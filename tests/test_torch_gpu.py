@@ -1,7 +1,9 @@
 """Tests of the port that need a CUDA device: the waterfill, flash-attention
 and SSD chunk kernels against their plain versions (waterfill also in its
-fleet layout), the simulator's main path, a fleet run and a reduced zamba2
-serve on the card against the same runs on the CPU, and a faulted and
+fleet layout; flash also at the moe, vlm and encdec models' launch shapes),
+the simulator's main path, a fleet run, ``moe_ffn`` and reduced zamba2,
+qwen3-moe, internvl2 and whisper serves on the card against the same runs
+on the CPU, two bitwise-equal card runs of ``moe_ffn``, and a faulted and
 resumed campaign on the card. They import no JAX, so they run on a machine
 that has only PyTorch:
 
@@ -321,6 +323,129 @@ def test_flash_f32_kernel_edges(B, S, T, H, K, hd, causal):
     assert bool(torch.isfinite(out).all())
     err = float((out - plain).abs().max())
     assert err <= 2e-5, err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal", [
+    (1, 512, 512, 64, 4, 128, True),      # qwen3-moe: G 16 at hd 128
+    (1, 512, 512, 48, 8, 128, True),      # dbrx: G 6
+    (1, 768, 768, 14, 2, 64, True),       # internvl2: G 7, 256 + 512 rows
+    (1, 1500, 1500, 6, 6, 64, False),     # whisper's encoder
+    (2, 4, 1500, 6, 6, 64, False),        # whisper's cross-attention
+])
+def test_flash_kernel_at_the_new_serving_launches(B, S, T, H, K, hd, causal,
+                                                  dtype, tol):
+    """The flash kernels at the launch shapes the moe, vlm and encdec
+    models give them (batch cut to 1-2), against the plain version at the
+    JAX tests' tolerances; 1,500 is not a multiple of the 64-row tile."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(S + H + K)
+    q = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, T, K, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, T, K, hd, generator=g, device=dev).to(dtype)
+    before = fa.LAUNCHES
+    out = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    plain = attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal).transpose(1, 2)
+    assert bool(torch.isfinite(out).all())
+    err = float((out.float() - plain.float()).abs().max())
+    assert err <= tol, err
+
+
+def _moe_inputs(dev, dtype, T=256, D=256, F=128, E=16, seed=0):
+    from repro_torch.models import blocks as B
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = {k: (0.3 * torch.randn(s.shape, generator=g, device=dev)).to(dtype)
+         for k, s in B.moe_specs(D, F, E).items()}
+    x = torch.randn(2, T // 2, D, generator=g, device=dev).to(dtype)
+    return p, x
+
+
+def test_moe_ffn_on_card_matches_cpu():
+    """``moe_ffn`` in float32 on the card against the CPU, same inputs:
+    the same routing and dropped slots, output and aux within 1e-5
+    relative to max|out|."""
+    from repro_torch.models import blocks as B
+
+    dev = _cuda()
+    p, x = _moe_inputs(dev, torch.float32)
+    runs = {}
+    for name, pp, xx in (("card", p, x),
+                         ("cpu", {k: v.cpu() for k, v in p.items()}, x.cpu())):
+        with B.record_routes() as routes:
+            out, aux = B.moe_ffn(pp, xx, 16, 4, 1.0)
+        (route,) = routes
+        runs[name] = (out.cpu(), aux.cpu(), route["top_idx"].cpu(),
+                      int(route["dropped"]))
+    (oc, ac, ic, dc), (op, ap, ip, dp) = runs["card"], runs["cpu"]
+    assert torch.equal(ic, ip) and dc == dp and dc > 0
+    scale = float(op.abs().max())
+    assert float((oc - op).abs().max()) <= 1e-5 * scale
+    assert abs(float(ac) - float(ap)) <= 1e-5 * abs(float(ap))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_card_is_bitwise_repeatable(dtype):
+    """Two card runs of ``moe_ffn`` on the same inputs give the same bits:
+    the combine gathers and sums in a fixed order, with no atomics."""
+    from repro_torch.models import blocks as B
+
+    dev = _cuda()
+    p, x = _moe_inputs(dev, dtype, T=2048, D=512, F=256, E=32, seed=1)
+    a, aux_a = B.moe_ffn(p, x, 32, 8, 1.25)
+    b, aux_b = B.moe_ffn(p, x, 32, 8, 1.25)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "internvl2-1b",
+                                  "whisper-tiny"])
+def test_new_families_serve_on_card_as_on_cpu(arch):
+    """A reduced moe, vlm and encdec model served on the card (flash in
+    every prefill attention) and on the CPU from the same weights and the
+    same patch or frame prefix: identical tokens, and the flash launches
+    the family's prefill makes (per wave: one per layer; whisper one per
+    encoder layer and two per decoder layer)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.serve import Request, ServeEngine
+
+    _cuda()
+    cfg = get_config(arch).reduced()
+    api = get_model(cfg)
+    model = api.init(torch.Generator(device="cuda").manual_seed(0))
+    cpu_model = copy.deepcopy(model).cpu()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 16).astype(np.int32)
+               for _ in range(4)]
+    extra = {}
+    if cfg.family == "vlm":
+        extra["vis_embeds"] = rng.standard_normal(
+            (2, cfg.n_vis_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        extra["frames"] = rng.standard_normal(
+            (2, 100, cfg.d_model)).astype(np.float32)
+    per_wave = (cfg.n_enc_layers + 2 * cfg.n_layers
+                if cfg.family == "encdec" else cfg.n_layers)
+    outs = {}
+    for name, a, m in (("card", api, model),
+                       ("cpu", get_model(cfg, device="cpu"), cpu_model)):
+        eng = ServeEngine(a, max_len=48, batch_slots=2)
+        eng.load(m)
+        reqs = [Request(prompt=p, max_new_tokens=8) for p in prompts]
+        before = fa.LAUNCHES
+        eng.run(reqs, extra_batch=extra)
+        outs[name] = [r.out for r in reqs]
+        assert fa.LAUNCHES - before == (2 * per_wave if name == "card"
+                                        else 0)
+    assert outs["card"] == outs["cpu"]
 
 
 def test_lm_kernels_raise_on_wrong_device_or_dtype():

@@ -46,7 +46,8 @@ def test_guard_sees_the_whole_port():
                  "kernels/flash_attention/ops.py", "kernels/ssd_scan/ops.py",
                  "kernels/waterfill/ops.py", "streams/simulator.py",
                  "core/tcp.py", "core/multiapp.py", "configs/paper_stream.py",
-                 "configs/yi_6b.py"):
+                 "configs/yi_6b.py", "models/whisper.py",
+                 "configs/qwen3_moe_235b.py", "configs/whisper_tiny.py"):
         assert must in names
     examples = {p.name for p in FILES if p.parent.name == "examples"}
     for must in ("port_multiapp_fairness.py", "port_stream_allocator_demo.py",
@@ -81,6 +82,7 @@ class _Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, _Block())
 import repro_torch.serve.engine
 import repro_torch.models.convert
+import repro_torch.models.whisper
 import repro_torch.kernels.flash_attention.ops
 import repro_torch.kernels.ssd_scan.ops
 import repro_torch.kernels.waterfill.ops
@@ -91,8 +93,10 @@ import runpy
 for ex in sorted(__import__("pathlib").Path("examples").glob("port_*.py")):
     runpy.run_path(str(ex), run_name="example")
 from repro_torch.models.registry import list_archs
-assert list_archs() == ["mamba2-370m", "qwen1.5-0.5b", "stablelm-1.6b",
-                        "starcoder2-15b", "yi-6b", "zamba2-1.2b"]
+assert list_archs() == ["dbrx-132b", "internvl2-1b", "mamba2-370m",
+                        "qwen1.5-0.5b", "qwen3-moe-235b-a22b", "stablelm-1.6b",
+                        "starcoder2-15b", "whisper-tiny", "yi-6b",
+                        "zamba2-1.2b"]
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
 print("ok")
 """

@@ -1,6 +1,7 @@
-"""The port's LM (dense, ssm and hybrid families) and ``ServeEngine``
-against the JAX package, from the same parameters carried across with
-``params_from_jax``, in float32 on the CPU.
+"""The port's LM (dense, moe, ssm, hybrid and vlm families) and
+``ServeEngine`` against the JAX package, from the same parameters carried
+across with ``params_from_jax``, in float32 on the CPU (whisper, the encdec
+family, is ``tests/test_torch_whisper.py``'s).
 
 Tolerance 1e-4 on logits and caches: the SSD core is a chunked scan that
 the JAX tests hold at 1e-4 against the sequential recurrence, and the port
@@ -19,6 +20,7 @@ import torch
 from repro.models import lm as jlm
 from repro.models.registry import get_config as jax_config
 from repro.models.registry import get_model as jax_model
+from repro.models.registry import list_archs as jax_list_archs
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxEngine
 from repro_torch.models import lm
@@ -38,7 +40,15 @@ CASES = {
     "yi": ("yi-6b", {}),
     "stablelm": ("stablelm-1.6b", {}),
     "starcoder2": ("starcoder2-15b", {}),
+    "qwen3-moe": ("qwen3-moe-235b-a22b", {}),
+    "dbrx": ("dbrx-132b", {}),
+    "internvl2": ("internvl2-1b", {}),
 }
+# the moe and vlm cases run the per-case tests below from a file of their
+# own, tests/test_torch_lm_moe_vlm.py, so that each file stays under a
+# minute on the CPU
+MOE_VLM = ("qwen3-moe", "dbrx", "internvl2")
+HERE = [c for c in CASES if c not in MOE_VLM]
 # zero/one-initialised leaves: the norms' weights and layernorm biases, the
 # qkv and MLP biases, the Mamba2 scalars
 _PERTURB = ("A_log", "dt_bias", "D", "norm_w", "w", "b", "bq", "bk", "bv",
@@ -51,6 +61,9 @@ FULL_PARAMS = {
     "starcoder2-15b": 15_655_653_376,
     "yi-6b": 6_061_035_520,
     "zamba2-1.2b": 1_104_937_856,
+    "qwen3-moe-235b-a22b": 235_093_634_560,
+    "dbrx-132b": 131_597_021_184,
+    "internvl2-1b": 494_583_808,
 }
 
 
@@ -81,9 +94,19 @@ def _np(t):
     return t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
+def _vis(cfg, seed):
+    """Seeded patch embeddings [B, n_vis, D] for a vlm config, else None."""
+    if cfg.family != "vlm":
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (B, cfg.n_vis_tokens, cfg.d_model)).astype(np.float32)
+
+
 def test_configs_are_copies_of_jax():
-    assert list_archs() == ["mamba2-370m", "qwen1.5-0.5b", "stablelm-1.6b",
-                            "starcoder2-15b", "yi-6b", "zamba2-1.2b"]
+    assert list_archs() == ["dbrx-132b", "internvl2-1b", "mamba2-370m",
+                            "qwen1.5-0.5b", "qwen3-moe-235b-a22b",
+                            "stablelm-1.6b", "starcoder2-15b",
+                            "whisper-tiny", "yi-6b", "zamba2-1.2b"]
     for name in list_archs():
         j = dataclasses.asdict(jax_config(name))
         t = dataclasses.asdict(get_config(name))
@@ -106,7 +129,7 @@ def test_full_width_param_count_matches_jax(name):
     assert n == FULL_PARAMS[name]
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", HERE)
 def test_param_count_and_names(case):
     jcfg, jparams, tcfg, model = _setup(case)
     n = sum(int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(jparams))
@@ -123,21 +146,27 @@ def test_param_count_and_names(case):
         names["embed"].numpy(), np.asarray(jparams["embed"]))
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", HERE)
 def test_forward_prefill_decode_match_jax(case):
     jcfg, jparams, tcfg, model = _setup(case)
     rng = np.random.default_rng(1)
-    n, k, max_len = 16, 12, 20
+    n, k = 16, 12
     toks = rng.integers(0, tcfg.vocab, (B, n)).astype(np.int32)
     tt = torch.tensor(toks, dtype=torch.long)
+    vis = _vis(tcfg, 2)
+    jv, tv = (None, None) if vis is None else (jnp.asarray(vis),
+                                               torch.tensor(vis))
+    nv = tcfg.n_vis_tokens if vis is not None else 0
+    max_len = 20 + nv
 
-    want, _ = jlm.forward(jcfg, jparams, jnp.asarray(toks))
-    got = lm.forward(tcfg, model, tt)
+    want, jaux = jlm.forward(jcfg, jparams, jnp.asarray(toks), vis_embeds=jv)
+    got, aux = lm.forward(tcfg, model, tt, vis_embeds=tv, return_aux=True)
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    np.testing.assert_allclose(_np(aux), np.asarray(jaux), **TOL)
 
     jlog, jcache = jlm.prefill(jcfg, jparams, jnp.asarray(toks[:, :k]),
-                               max_len)
-    tlog, tcache = lm.prefill(tcfg, model, tt[:, :k], max_len)
+                               max_len, vis_embeds=jv)
+    tlog, tcache = lm.prefill(tcfg, model, tt[:, :k], max_len, vis_embeds=tv)
     np.testing.assert_allclose(_np(tlog), np.asarray(jlog), **TOL)
     jflat = jax.tree_util.tree_leaves_with_path(jcache)
     tflat = dict(jax.tree_util.tree_leaves_with_path(tcache))
@@ -149,13 +178,14 @@ def test_forward_prefill_decode_match_jax(case):
     dec = jax.jit(lambda p, c, t, pos: jlm.decode_step(jcfg, p, c, t, pos))
     for i in range(k, n):
         jlog, jcache = dec(jparams, jcache, jnp.asarray(toks[:, i:i + 1]),
-                           jnp.asarray(i, jnp.int32))
-        tlog, tcache = lm.decode_step(tcfg, model, tcache, tt[:, i:i + 1], i)
+                           jnp.asarray(nv + i, jnp.int32))
+        tlog, tcache = lm.decode_step(tcfg, model, tcache, tt[:, i:i + 1],
+                                      nv + i)
         np.testing.assert_allclose(_np(tlog), np.asarray(jlog), **TOL,
                                    err_msg=f"{case}: decode step {i}")
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", HERE)
 def test_prefill_decode_matches_forward(case):
     """Teacher forcing within the port (tests/test_archs.py's check):
     forward logits at position i equal prefill(tokens[:k]) followed by
@@ -165,13 +195,20 @@ def test_prefill_decode_matches_forward(case):
     n, k = 16, 12
     toks = torch.tensor(np.random.default_rng(0).integers(
         0, tcfg.vocab, (B, n)), dtype=torch.long)
-    full = api.forward(model, {"tokens": toks})
-    logits, cache = api.prefill(model, {"tokens": toks[:, :k]}, n)
-    np.testing.assert_allclose(_np(logits[:, 0]), _np(full[:, k - 1]), **TOL)
+    batch = {"tokens": toks}
+    nv = 0
+    if tcfg.family == "vlm":
+        batch["vis_embeds"] = torch.tensor(_vis(tcfg, 3))
+        nv = tcfg.n_vis_tokens
+    full = api.forward(model, batch)
+    logits, cache = api.prefill(model, {**batch, "tokens": toks[:, :k]},
+                                nv + n)
+    np.testing.assert_allclose(_np(logits[:, 0]), _np(full[:, nv + k - 1]),
+                               **TOL)
     for i in range(k, n):
-        logits, cache = api.decode(model, cache, toks[:, i:i + 1], i)
-        np.testing.assert_allclose(_np(logits[:, 0]), _np(full[:, i]), **TOL,
-                                   err_msg=f"{case}: decode step {i}")
+        logits, cache = api.decode(model, cache, toks[:, i:i + 1], nv + i)
+        np.testing.assert_allclose(_np(logits[:, 0]), _np(full[:, nv + i]),
+                                   **TOL, err_msg=f"{case}: decode step {i}")
 
 
 @pytest.mark.parametrize("case", ["zamba2-tail", "mamba2", "qwen", "yi",
@@ -179,17 +216,23 @@ def test_prefill_decode_matches_forward(case):
 def test_serve_engine_matches_jax(case):
     jcfg, jparams, tcfg, model = _setup(case, seed=2, gain=8.0)
     rng = np.random.default_rng(3)
+    vlm = tcfg.family == "vlm"
+    # the vlm engine passes one patch prefix to every wave: full waves
     prompts = [rng.integers(0, tcfg.vocab, 8).astype(np.int32)
-               for _ in range(5)]
-    jeng = JaxEngine(jax_model(jcfg), max_len=32, batch_slots=2)
+               for _ in range(4 if vlm else 5)]
+    vis = _vis(tcfg, 4)
+    jextra = None if vis is None else {"vis_embeds": jnp.asarray(vis)}
+    textra = None if vis is None else {"vis_embeds": vis}
+    max_len = 32 + (tcfg.n_vis_tokens if vlm else 0)
+    jeng = JaxEngine(jax_model(jcfg), max_len=max_len, batch_slots=2)
     jeng.load(jparams)
     jreqs = [JaxRequest(prompt=p, max_new_tokens=6) for p in prompts]
-    jeng.run(jreqs)
-    teng = ServeEngine(get_model(tcfg, device="cpu"), max_len=32,
+    jeng.run(jreqs, extra_batch=jextra)
+    teng = ServeEngine(get_model(tcfg, device="cpu"), max_len=max_len,
                        batch_slots=2)
     teng.load(model)
     treqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
-    teng.run(treqs)
+    teng.run(treqs, extra_batch=textra)
     assert all(r.done and len(r.out) == 6 for r in treqs)
     assert [r.out for r in treqs] == [r.out for r in jreqs]
     assert len({t for r in treqs for t in r.out}) > len(prompts)
@@ -232,12 +275,15 @@ def test_entry_points_default_to_the_card():
         params_from_jax(cfg, tree)
 
 
-def test_unported_families_raise():
+def test_list_archs_equals_jax_registry():
+    """Every architecture the JAX package registers is served by the port,
+    and an unknown family raises."""
+    assert list_archs() == jax_list_archs()
     cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="A.12"):
+                              family="retrieval")
+    with pytest.raises(ValueError, match="unknown family"):
         get_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(ValueError, match="unknown family"):
         lm.init_cache(cfg, 1, 8, device="cpu")
 
 

@@ -1,8 +1,10 @@
 """Where the time goes in the PyTorch port, on one CUDA card.
 
-    python3 tools/port_profile.py [sim] [fleet] [serve]
+    python3 tools/port_profile.py [sim] [fleet] [serve [ARCH[:LAYERS] ...]]
 
-(no argument: all three parts).
+(no argument: all three parts; ``serve`` alone profiles zamba2-1.2b and
+yi-6b, and ``serve qwen3-moe-235b-a22b:8 whisper-tiny`` the named archs,
+cut to LAYERS layers where given).
 
 Simulation: for the paper-grid cell (TT on big_switch(8, 1.25)) and the
 datacenter cell (TT at 64-way parallelism on a 256-machine fat-tree, as in
@@ -14,10 +16,11 @@ tcp and appaware (solver="waterfill"), 30 s, per fleet tick (one tick of
 every bucket); and a campaign of ``campaign_fleet(1024)`` in chunks of 256
 rows, appaware through the kernel, per chunk tick (one tick of one chunk).
 
-Serving: zamba2-1.2b and yi-6b at full width (bf16, random weights from a
-seed), one wave of chip_smoke.py's serving runs: the prefill of 4 × 512
-tokens, and 8 decode steps of 4 tokens, each warmed up, timed and profiled
-the same way.
+Serving: each arch at full width (bf16, random weights from a seed), one
+wave of chip_smoke.py's serving runs: the prefill of 4 × 512 tokens (a
+vlm's 256 seeded patch embeddings before them; whisper: 4 tokens and 1,500
+seeded frames), and 8 decode steps of 4 tokens, each warmed up, timed and
+profiled the same way.
 
 Prints per unit (tick, prefill, decode step) the wall time of the timed
 run, the summed device time of all device activities in the profiled run,
@@ -86,28 +89,45 @@ def _report(label: str, fn, n_units: int, unit: str) -> None:
               f"ms/{unit} x{e.count / n_units:6.1f}  {e.key[:90]}")
 
 
-def _serve(arch: str, n_decode: int = 8) -> None:
+def _serve(arch: str, n_layers: int | None = None,
+           n_decode: int = 8) -> None:
+    import dataclasses
+
     import numpy as np
     import torch
 
-    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.models.registry import (WHISPER_FRAMES, get_config,
+                                             get_model)
 
-    B, S, max_len = 4, 512, 544
-    api = get_model(get_config(arch))
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    B, S = 4, (4 if cfg.family == "encdec" else 512)
+    api = get_model(cfg)
     model = api.init(torch.Generator(device="cuda").manual_seed(0))
-    toks = torch.as_tensor(np.random.default_rng(0).integers(
-        0, api.cfg.vocab, (B, S)), dtype=torch.long, device="cuda")
-    _report(f"{arch} serving [4 x 512 tokens] prefill",
-            lambda: api.prefill(model, {"tokens": toks}, max_len), 1,
-            "wave")
-    _, cache = api.prefill(model, {"tokens": toks}, max_len)
-    nxt = toks[:, -1:]
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                                       dtype=torch.long, device="cuda")}
+    n_vis = cfg.n_vis_tokens if cfg.family == "vlm" else 0
+    n_pre = {"vlm": n_vis, "encdec": WHISPER_FRAMES}.get(cfg.family)
+    if n_pre:
+        key = "vis_embeds" if cfg.family == "vlm" else "frames"
+        batch[key] = torch.as_tensor(rng.standard_normal(
+            (B, n_pre, cfg.d_model)), dtype=torch.float32, device="cuda")
+    max_len = n_vis + S + 32
+    label = (f"{arch}{'' if n_layers is None else f' ({n_layers} layers)'} "
+             f"serving [{B} x {S} tokens"
+             + (f", {n_pre} {'patches' if n_vis else 'frames'}]"
+                if n_pre else "]"))
+    _report(f"{label} prefill", lambda: api.prefill(model, batch, max_len),
+            1, "wave")
+    _, cache = api.prefill(model, batch, max_len)
+    nxt = batch["tokens"][:, -1:]
 
     def decode():
         for i in range(n_decode):
-            api.decode(model, cache, nxt, S + i)
-    _report(f"{arch} serving [4 x 512 tokens] decode", decode,
-            n_decode, "step")
+            api.decode(model, cache, nxt, n_vis + S + i)
+    _report(f"{label} decode", decode, n_decode, "step")
     del model, cache
     torch.cuda.empty_cache()
 
@@ -151,8 +171,14 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    parts = sys.argv[1:] or ["sim", "fleet", "serve"]
-    unknown = set(parts) - {"sim", "fleet", "serve"}
+    from repro_torch.models.registry import list_archs
+
+    args = sys.argv[1:] or ["sim", "fleet", "serve"]
+    parts = [a for a in args if a in ("sim", "fleet", "serve")]
+    archs = [a for a in args if a not in parts]
+    unknown = {a for a in archs if a.split(":")[0] not in list_archs()}
+    if archs and "serve" not in parts:
+        unknown |= set(archs)
     if unknown:
         print(f"port_profile: unknown parts {sorted(unknown)}",
               file=sys.stderr)
@@ -169,8 +195,9 @@ def main() -> int:
     if "fleet" in parts:
         _fleet()
     if "serve" in parts:
-        for arch in ("zamba2-1.2b", "yi-6b"):
-            _serve(arch)
+        for arch in archs or ["zamba2-1.2b", "yi-6b"]:
+            name, _, layers = arch.partition(":")
+            _serve(name, int(layers) if layers else None)
     return 0
 
 
