@@ -40,7 +40,11 @@ Phases, each of which makes the script exit non-zero when it fails:
    bfloat16), the prefill launches of phases 14-17 (qwen3-moe H 64 over
    K 4 at hd 128, dbrx H 48 over K 8, internvl2 S 768 with H 14 over K 2,
    whisper's non-causal encoder at S = T = 1,500 and cross-attention at
-   S 4, T 1,500, all bfloat16) and mamba2-370m's N = 128: max |Δ| ≤ 2e-5
+   S 4, T 1,500, all bfloat16), mamba2-370m's N = 128, and both kernels at
+   phase 18's train-step launches (flash B 2, S = T = 4,096, H 32, hd 64,
+   bfloat16; SSD chunk BH 2·64, 32 chunks of 128, P 64, N 64), where the
+   forward plus the autograd backward (the plain version's vjp) is timed
+   too: max |Δ| ≤ 2e-5
    (flash float32), 2e-2 (flash bfloat16), 1e-4 (SSD), the JAX tests' own
    tolerances; prints each kernel's time (as in phase 3), its plain
    version's, SDPA's for flash (a CUDA graph too), and the bound (float32
@@ -102,7 +106,10 @@ Phases, each of which makes the script exit non-zero when it fails:
     oracles (``maxmin_rates``, ``demand_limited_maxmin``,
     ``tcp_app_throughput``, ``AppFairScheduler``) on CUDA tensors against
     ``demand_limited_maxmin_np``, ``port_dynamic_failure`` within 1% of the
-    JAX example's throughputs, and ``port_serve_decode`` at ``reduced()``;
+    JAX example's throughputs, ``port_serve_decode`` at ``reduced()``,
+    ``port_quickstart`` (8 decoded tokens after 50 train steps) and
+    ``port_train_lm`` (40 steps, a failure injected at step 25 restarts
+    from the step-20 checkpoint, the loss falls);
 14. serving qwen3-moe-235b-a22b at full width (d_model 4096, 64 heads over
     4 KV heads of 128, 128 experts of d_ff 1536, top-8, qk-norm, vocab
     151,936) cut to 8 of its 94 layers (21.15B parameters, 42.3 GB of
@@ -129,7 +136,33 @@ Phases, each of which makes the script exit non-zero when it fails:
     bfloat16): 8 × (1,500 seeded frames + a 4-token prompt), 32 new
     tokens, 24 flash launches (per wave 4 non-causal encoder layers, 4
     causal decoder self-attentions, 4 non-causal cross-attentions); then
-    the whole model in float32 card vs CPU within 1e-5·max|logits|.
+    the whole model in float32 card vs CPU within 1e-5·max|logits|;
+18. training zamba2-1.2b at full width and depth (1,104,937,856 float32
+    parameters with AdamW's moments, bfloat16 compute, ``remat`` on)
+    through ``TrainDriver`` on ``SyntheticLM(structured=True)``, B 2 x S
+    4,096 (the JAX package's train_4k length; its batch of 256 cut to 2 to
+    fit one card), ``AdamW(lr=warmup_cosine(3e-4, warmup=2, total=8))``, 8
+    steps with async checkpoints every 4 under ``build/``. This is the
+    training main-path run: every loss and gradient norm finite, the loss
+    on step 0's batch lower after the 8 steps than before (each step's own
+    loss is on another batch of two sequences, ~0.1 nats apart), the
+    parameters moved, and per step exactly 12
+    flash launches (6 shared-block applications, forward and recompute)
+    and 76 SSD chunk launches (38 Mamba2 layers, forward and recompute);
+    prints the loss, grad norm and wall ms per step, ms per step and
+    tokens/s over steps 1-7, peak device memory, and each checkpoint's
+    bytes and save seconds. Then a restart from the step-4 checkpoint
+    replays steps 4-7 with the first run's losses (within 1e-5 relative;
+    whether bit for bit is printed);
+19. one float32 train step card (kernels) against CPU (plain versions),
+    from the same weights and batch: zamba2-1.2b at full width cut to 7
+    layers (one group of 6 and a 1-layer tail), B 2, S 256, through
+    ``make_train_step``; one full-width qwen3-moe layer, B 1, S 128, its
+    loss and gradients only (AdamW's states of its 15 GB would not fit
+    twice), routing identical; whisper-tiny at full width and depth, B 2,
+    64 tokens and 1,500 seeded frames (the non-causal kernel under
+    autograd). The loss within 1e-5 relative, every gradient leaf within
+    1e-4·max|g_leaf|.
 
 Before its last line the script prints one JSON object describing each
 kernel, then the card's name and power limit; the last line is
@@ -563,6 +596,19 @@ def main() -> int:
                   S=WHISPER_PROMPT, seed=5)
     lap("17 (serving whisper)")
 
+    # ---- 18. train zamba2-1.2b at full width and depth (the training
+    # main-path run) ------------------------------------------------------
+    trained = phase_train(dev)
+    lap("18 (training zamba2)")
+
+    # ---- 19. one float32 train step, card against CPU -------------------
+    phase_train_numeric(dev, "zamba2-1.2b", n_layers=7, B=2, S=256, seed=6)
+    phase_train_numeric(dev, "qwen3-moe-235b-a22b", n_layers=1, B=1, S=128,
+                        seed=7, routes=True, optimizer=False)
+    phase_train_numeric(dev, "whisper-tiny", n_layers=None, B=2, S=64,
+                        seed=8)
+    lap("19 (train step card vs CPU)")
+
     main = results["datacenter"]["shared"]
     kernels = [{
         "name": "waterfill",
@@ -616,6 +662,14 @@ def main() -> int:
                              for arch, n in served.items()},
         "serving_rows": flash["serving"],
     })
+    # phase 18's main path (counts set to 0 just before it) and each kernel
+    # at its launch shape there (phase 7), with its forward + backward
+    for entry, res, name in ((kernels[1], flash, "flash_attention"),
+                             (kernels[2], ssd, "ssd_chunk")):
+        entry.update({
+            "train_launches": trained["launches"][name],
+            "train_launches_per_step": trained["per_step"][name],
+            **{f"train_{k}": v for k, v in res["train"].items()}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -955,6 +1009,13 @@ def ssd_bound_ms(BH, nc, Q, P, N, Bsz):
 
 # phase 7's row at yi-6b's prefill launch shape
 YI6B_FLASH = "yi-6b GQA H32/K4 hd128 bf16"
+# phase 18: zamba2-1.2b trains at full width and depth on B 2 x S 4096 (the
+# JAX package's train_4k length; its global batch of 256 cut to 2 to fit
+# one card), 8 steps, one checkpoint every 4; phase 7 holds both kernels to
+# their plain versions at the train step's launch shapes
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 2, 4096, 8, 4
+TRAIN_FLASH = "zamba2 train B2 S4096 H32 hd64 bf16"
+ZAMBA2_PARAMS = 1_104_937_856
 # JAX ``get_model(get_config("yi-6b")).count_params()``
 YI6B_PARAMS = 6_061_035_520
 # JAX ``count_params()`` (and qwen3-moe's ``active_params()``) at full
@@ -1011,6 +1072,9 @@ FLASH_ROWS = (
      "bfloat16", 2e-2, False),
     ("whisper cross S4 T1500 bf16", (SERVE_B, 4, 1500, 6, 6, 64),
      "bfloat16", 2e-2, False),
+    # phase 18: zamba2-1.2b's train step (B 2 x S 4096)
+    (TRAIN_FLASH, (TRAIN_B, TRAIN_S, TRAIN_S, 32, 32, 64), "bfloat16", 2e-2,
+     True),
 )
 
 
@@ -1055,7 +1119,7 @@ def phase_flash(dev) -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_plain
 
     g = torch.Generator(device=dev).manual_seed(0)
-    worst, timed, yi6b, serving = 0.0, {}, {}, []
+    worst, timed, yi6b, serving, train = 0.0, {}, {}, [], {}
     for label, (B, S, T, H, K, hd), dtype, tol, causal in FLASH_ROWS:
         dtype = getattr(torch, dtype)
         q = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
@@ -1101,7 +1165,32 @@ def phase_flash(dev) -> dict:
                                 max_abs_err=err, ms=ms, eager_ms=eager_ms,
                                 plain_ms=plain_ms, bound_ms=bound_ms,
                                 bound_by=bound_by, library_ms=lib_ms))
-    return dict(timed, max_abs_err=worst, yi6b=yi6b, serving=serving)
+        if label == TRAIN_FLASH:
+            train = dict(shape=shape, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms,
+                         fwd_bwd_ms=fwd_bwd_ms(
+                             lambda q, k, v: fa.flash_attention(
+                                 q, k, v, causal=causal), (q, k, v)))
+            print(f"kernel flash_attention {label}: forward + backward (the "
+                  f"plain version's vjp, float32) {train['fwd_bwd_ms']:.4f} "
+                  f"ms")
+    return dict(timed, max_abs_err=worst, yi6b=yi6b, serving=serving,
+                train=train)
+
+
+def fwd_bwd_ms(fn, inputs) -> float:
+    """Device time of ``fn(*inputs)`` and its backward (CUDA events), the
+    inputs' gradients taken against a ones cotangent."""
+    import torch
+
+    leaves = [t.detach().requires_grad_() for t in inputs]
+
+    def step():
+        out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        torch.autograd.grad(outs, leaves, [torch.ones_like(o) for o in outs])
+    return event_ms(step, reps=3, warmup=1)
 
 
 def phase_ssd(dev) -> dict:
@@ -1112,11 +1201,13 @@ def phase_ssd(dev) -> dict:
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_plain
 
     rng = np.random.default_rng(0)
-    worst, timed = 0.0, {}
-    # zamba2-1.2b: 64 SSD heads of 64, N 64; mamba2-370m: 32 heads, N 128
+    worst, timed, train = 0.0, {}, {}
+    # zamba2-1.2b: 64 SSD heads of 64, N 64; mamba2-370m: 32 heads, N 128;
+    # zamba2-1.2b's train step (phase 18): B 2 x S 4096
     for label, (Bsz, H, nc, Q, P, N) in (
             ("zamba2 N64", (SERVE_B, 64, SERVE_S // 128, 128, 64, 64)),
-            ("mamba2 N128", (SERVE_B, 32, SERVE_S // 128, 128, 64, 128))):
+            ("mamba2 N128", (SERVE_B, 32, SERVE_S // 128, 128, 64, 128)),
+            ("zamba2 train", (TRAIN_B, 64, TRAIN_S // 128, 128, 64, 64))):
         BH = Bsz * H
 
         def t(a):
@@ -1150,7 +1241,14 @@ def phase_ssd(dev) -> dict:
         if label == "zamba2 N64":
             timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by)
-    return dict(timed, max_abs_err=worst)
+        if label == "zamba2 train":
+            train = dict(shape=f"BH{BH} nc{nc} Q{Q} P{P} N{N}",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         fwd_bwd_ms=fwd_bwd_ms(ssd.ssd_chunk, args))
+            print(f"kernel ssd_chunk {label}: forward + backward (the plain "
+                  f"version's vjp) {train['fwd_bwd_ms']:.4f} ms")
+    return dict(timed, max_abs_err=worst, train=train)
 
 
 def serve_extra(cfg, rng, B: int) -> dict:
@@ -1405,6 +1503,267 @@ def phase_numeric(dev, arch: str, n_layers: int | None, B: int, S: int,
     torch.cuda.empty_cache()
 
 
+# ---- the training path (phases 18-19) ------------------------------------
+# card vs CPU for one float32 train step: the loss within TRAIN_LOSS_RTOL
+# relative, every gradient leaf within TRAIN_GRAD_RTOL·max|g_leaf| (no leaf
+# closer than float32's epsilon times the model's largest gradient: a leaf
+# whose exact gradient is 0, an attention key bias, holds only noise)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+# the replayed losses against the first run's (same card, same kernels)
+REPLAY_RTOL = 1e-5
+
+
+def phase_train(dev) -> dict:
+    """zamba2-1.2b at full width and depth, trained through ``TrainDriver``
+    on the card: float32 master weights and AdamW states, bfloat16
+    compute, ``remat`` on, ``SyntheticLM(structured=True)``, B 2 x S 4096,
+    ``AdamW(lr=warmup_cosine(3e-4, warmup=2, total=8))``, 8 steps with
+    async checkpoints every 4 (under ``build/``). Checks every loss and
+    gradient norm finite, the loss on step 0's batch lower after the 8
+    steps than before, the parameters moved, the kernel launches per step (each attention application and
+    each Mamba2 layer once in the forward and once in its recompute), and
+    a restart from the step-4 checkpoint that replays steps 4-7 with the
+    first run's losses. Returns the launches and the timings."""
+    import math
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.train.driver import DriverConfig, TrainDriver
+    from repro_torch.train.optim import AdamW, warmup_cosine
+    from repro_torch.train.step import make_loss_fn
+
+    cfg = get_config("zamba2-1.2b")
+    api = get_model(cfg, device=dev)
+    n = api.count_params()
+    check(n == ZAMBA2_PARAMS, f"train: {n} parameters != {ZAMBA2_PARAMS}")
+    check(cfg.remat and cfg.dtype == torch.bfloat16,
+          "train: zamba2-1.2b computes in bfloat16 with remat")
+    t0 = time.perf_counter()
+    model = api.init(torch.Generator(device=dev).manual_seed(0),
+                     trainable=True)
+    torch.cuda.synchronize()
+    print(f"train: zamba2-1.2b, {n:,} float32 parameters "
+          f"({4 * n / 1e9:.2f} GB; with AdamW's two moments "
+          f"{12 * n / 1e9:.2f} GB), bfloat16 compute, remat on, "
+          f"initialised on the card in {time.perf_counter() - t0:.2f} s")
+    opt = AdamW(lr=warmup_cosine(3e-4, warmup=2, total=TRAIN_STEPS))
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_S,
+                       global_batch=TRAIN_B, structured=True)
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    drv = TrainDriver(api, opt, pipe, DriverConfig(
+        steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+        ckpt_dir=str(root / "run")))
+    n_apps = cfg.n_layers // cfg.hybrid_attn_every
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = ssd.LAUNCHES = 0
+    t0 = time.perf_counter()
+    params, opt_state, step = drv.run(model, opt.init(model))
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.LAUNCHES, "ssd_chunk": ssd.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    check(step == TRAIN_STEPS, f"train: ran to step {step}")
+    m = drv.metrics
+    losses = [r["loss"] for r in m]
+    steady = [r["wall_s"] for r in m[1:]]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    tokens = TRAIN_B * TRAIN_S
+    for r in m:
+        print(f"train: step {r['step']}: loss {r['loss']:.6f}, grad_norm "
+              f"{r['grad_norm']:.4f}, {1e3 * r['wall_s']:.1f} ms")
+    print(f"train: {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens in "
+          f"{wall:.2f} s wall (the last checkpoint included); steps 1-"
+          f"{TRAIN_STEPS - 1}: {step_ms:.1f} ms per step, "
+          f"{tokens * 1e3 / step_ms:.1f} tokens/s; peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    want = {"flash_attention": 2 * n_apps, "ssd_chunk": 2 * cfg.n_layers}
+    print(f"train: launches per step flash {per_step['flash_attention']:g}, "
+          f"ssd_chunk {per_step['ssd_chunk']:g} (expected "
+          f"{want['flash_attention']} and {want['ssd_chunk']}: {n_apps} "
+          f"attention applications and {cfg.n_layers} Mamba2 layers, each "
+          f"in the forward and in its recompute; the backward is the plain "
+          f"versions' vjp)")
+    for name, k in want.items():
+        check(launches[name] == k * TRAIN_STEPS,
+              f"train: {name} launches {launches[name]} != "
+              f"{k} x {TRAIN_STEPS}")
+    for s_ in drv.ckpt.saves:
+        print(f"train: checkpoint at step {s_['step']}: "
+              f"{s_['bytes'] / 1e9:.3f} GB, host snapshot "
+              f"{s_['snapshot_s']:.2f} s, written (npz, sha256, rename) "
+              f"in {s_['write_s']:.2f} s on a background thread")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+              for r in m), "train: every loss and grad_norm finite")
+    # each step's loss is on its own batch of two affine sequences, and
+    # batches differ by ~0.1 nats at this loss, so the fall is read on one
+    # batch: step 0's, before and after the 8 steps
+    batch0 = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+              for k, v in pipe.batch(0).items()}
+    loss_fn = make_loss_fn(api)
+    with torch.no_grad():
+        before = float(loss_fn(model, batch0)[0])
+        after = float(loss_fn(params, batch0)[0])
+    print(f"train: loss on step 0's batch {before:.6f} before and "
+          f"{after:.6f} after the {TRAIN_STEPS} steps (step 0 reported "
+          f"{losses[0]:.6f}); the last step's loss {losses[-1]:.6f} on its "
+          f"own batch")
+    check(after < before, f"train: loss on step 0's batch {after} after "
+                          f"training, not below {before}")
+    with torch.no_grad():
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(model.parameters(), params.parameters()))
+    check(moved > 0, "train: the parameters changed")
+    del model
+
+    # restart from the step-4 checkpoint (hard links, so nothing is copied)
+    # and replay steps 4-7
+    first = root / "run" / f"ckpt_{TRAIN_CKPT_EVERY:08d}"
+    shutil.copytree(first, root / "replay" / first.name,
+                    copy_function=os.link)
+    again = TrainDriver(api, opt, pipe, DriverConfig(
+        steps=TRAIN_STEPS, ckpt_every=10 * TRAIN_STEPS,
+        ckpt_dir=str(root / "replay")))
+    t0 = time.perf_counter()
+    again.run(params, opt_state)
+    replay_s = time.perf_counter() - t0
+    del params, opt_state
+    restore_s = replay_s - sum(r["wall_s"] for r in again.metrics)
+    got = [r["loss"] for r in again.metrics]
+    ref = losses[TRAIN_CKPT_EVERY:]
+    check(again.events[0] == (TRAIN_CKPT_EVERY, "restored")
+          and [r["step"] for r in again.metrics]
+          == list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS)),
+          f"train: the restart replayed {[r['step'] for r in again.metrics]}")
+    worst = max(abs(a / b - 1) for a, b in zip(got, ref))
+    print(f"train: restored step {TRAIN_CKPT_EVERY} and replayed steps "
+          f"{TRAIN_CKPT_EVERY}-{TRAIN_STEPS - 1}: losses {got}; "
+          f"{'bit for bit equal to' if got == ref else 'differ from'} the "
+          f"first run's (max relative difference {worst:.3e}); restore and "
+          f"batches {restore_s:.2f} s")
+    check(worst <= REPLAY_RTOL, f"train: replayed losses {got} vs {ref}")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(launches=launches, per_step=per_step, step_ms=step_ms,
+                tokens_s=tokens * 1e3 / step_ms, peak_gib=peak / 2**30,
+                losses=losses, replay_bitwise=got == ref)
+
+
+def phase_train_numeric(dev, arch: str, n_layers: int | None, B: int, S: int,
+                        seed: int, routes: bool = False,
+                        optimizer: bool = True) -> None:
+    """One float32 train step of ``arch`` at full width (cut to
+    ``n_layers`` layers when given) on the card (kernels) and on the CPU
+    (plain versions), from the same weights and batch: the loss within
+    TRAIN_LOSS_RTOL and every gradient leaf within TRAIN_GRAD_RTOL of its
+    largest magnitude. The gradients are taken inside ``make_train_step``
+    (a ``grad_transform`` that keeps them), or, with ``optimizer`` off
+    (a model whose AdamW states would not fit twice), from
+    ``make_loss_fn`` and autograd alone. With ``routes`` (an MoE model)
+    every MoE call's top-k experts must agree exactly first."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.models import blocks
+    from repro_torch.models.lm import rebuild
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.step import make_loss_fn, make_train_step
+
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    label = (f"{arch} full width, "
+             + ("full depth" if n_layers is None else f"{n_layers} layers"))
+    t0 = time.perf_counter()
+    api, cpu_api = get_model(cfg, device=dev), get_model(cfg, device="cpu")
+    model = api.init(torch.Generator(device=dev).manual_seed(seed),
+                     trainable=True)
+    cpu_model = rebuild(model, {k: p.detach().cpu()
+                                for k, p in model.named_parameters()})
+    print(f"train numeric: {label}: {api.count_params():,} float32 "
+          f"parameters, built on the card and copied to the CPU in "
+          f"{time.perf_counter() - t0:.2f} s")
+    b = SyntheticLM(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                    seed=seed).batch(0)
+    b.update(serve_extra(cfg, np.random.default_rng(seed), B))
+    t0 = time.perf_counter()
+    sides = {}
+    for side, a, m, d in (("card", api, model, dev),
+                          ("cpu", cpu_api, cpu_model, "cpu")):
+        batch = {k: torch.as_tensor(v, device=d,
+                                    dtype=torch.long if v.dtype == np.int32
+                                    else torch.float32)
+                 for k, v in b.items()}
+        kept = {}
+        with blocks.record_routes() as moe_calls:
+            before = (fa.LAUNCHES, ssd.LAUNCHES)
+            if optimizer:
+                opt = AdamW(lr=1e-4)
+
+                def keep(grads):
+                    kept.update(grads)
+                    return grads
+                step = make_train_step(a, opt, grad_transform=keep)
+                _, _, met = step(m, opt.init(m), batch)
+                loss = float(met["loss"])
+            else:
+                loss, met = make_loss_fn(a)(m, batch)
+                names, leaves = zip(*m.named_parameters())
+                kept.update(zip(names, torch.autograd.grad(loss, leaves)))
+                loss = float(loss.detach())
+            launched = (fa.LAUNCHES - before[0], ssd.LAUNCHES - before[1])
+        sides[side] = (loss, kept, moe_calls, launched)
+        del m
+    del model, cpu_model
+    (loss, grads, card_routes, launched), (cpu_loss, cpu_grads, cpu_routes,
+                                          _) = sides["card"], sides["cpu"]
+    if routes:
+        k = cfg.top_k
+        same = [torch.equal(x["top_idx"].cpu(), y["top_idx"])
+                for x, y in zip(card_routes, cpu_routes)]
+        check(len(card_routes) == len(cpu_routes) > 0 and all(same),
+              f"{label}: routing differs card vs CPU in "
+              f"{len(same) - sum(same)} of {len(same)} MoE calls")
+        print(f"train numeric: {label}: top-{k} experts of {len(same)} MoE "
+              f"calls identical card vs CPU")
+    rel = abs(loss / cpu_loss - 1)
+    check(rel <= TRAIN_LOSS_RTOL, f"{label}: loss {loss} vs CPU {cpu_loss}")
+    floor = (float(np.finfo(np.float32).eps)
+             * max(float(g.abs().max()) for g in cpu_grads.values()))
+    worst, worst_name = 0.0, ""
+    for name, g in cpu_grads.items():
+        scale = max(float(g.abs().max()), floor / TRAIN_GRAD_RTOL)
+        err = float((grads.pop(name).cpu() - g).abs().max()) / scale
+        if err >= worst:
+            worst, worst_name = err, name
+    check(worst <= TRAIN_GRAD_RTOL,
+          f"{label}: gradient {worst_name} off by {worst:.3e} of its scale")
+    print(f"train numeric: {label}, f32, B{B} S{S}: loss card {loss:.7f} vs "
+          f"CPU {cpu_loss:.7f} (rel {rel:.2e}); worst gradient leaf "
+          f"{worst_name}: max|Δ| {worst:.3e} of max|g| (tol "
+          f"{TRAIN_GRAD_RTOL}); {len(cpu_grads)} leaves; "
+          f"{'train step' if optimizer else 'loss and gradients'}; card "
+          f"launches flash {launched[0]}, ssd_chunk {launched[1]}; done in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(launched[0] + launched[1] > 0,
+          f"{label}: the card's step launched no LM kernel")
+    torch.cuda.empty_cache()
+
+
 # ---- the port's examples and the paper's oracles (phase 13) --------------
 # JAX reference (examples/dynamic_failure.py, 120 s): throughput, post-event
 # throughput (tuples/s), dip depth, recovery s
@@ -1539,7 +1898,12 @@ def phase_examples(dev) -> None:
     """``examples/port_*.py`` with ``--device cuda``: the §VII fairness demo
     (App-Fair's Jain ≥ 0.98 for every α, TCP's within 1e-3 of 0.818), the
     oracles (:func:`phase_oracles`), the in-run failure demo against the
-    JAX reference's numbers, and the serving demo at ``reduced()``."""
+    JAX reference's numbers, the serving demo at ``reduced()``, the
+    quickstart (the stream demo, 50 train steps and a served request) and
+    the training demo (40 steps, a failure injected at step 25 and the
+    restart from the step-20 checkpoint, the loss falling)."""
+    import shutil
+
     import numpy as np
 
     t0 = time.perf_counter()
@@ -1567,6 +1931,23 @@ def phase_examples(dev) -> None:
     check(len(reqs) == 6 and all(r.done and len(r.out) == 12 for r in reqs),
           "serve_decode: 6 requests of 12 tokens")
     print(f"examples: serve_decode in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    req = load_example("port_quickstart").main(["--device", "cuda"])
+    check(req.done and len(req.out) == 8, "quickstart: 8 decoded tokens")
+    print(f"examples: quickstart in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    ckpt = ROOT / "build" / "chip_smoke_train_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    drv = load_example("port_train_lm").main(
+        ["--device", "cuda", "--steps", "40", "--ckpt-every", "10",
+         "--inject-failure", "25", "--ckpt-dir", str(ckpt)])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses = [m["loss"] for m in drv.metrics]
+    check((20, "restart-from-ckpt") in drv.events
+          and drv.metrics[-1]["step"] == 39 and losses[-1] < losses[0],
+          f"train_lm: restart from step 20 and a falling loss "
+          f"({drv.events}, {losses[0]} -> {losses[-1]})")
+    print(f"examples: train_lm in {time.perf_counter() - t0:.2f} s")
 
 
 if __name__ == "__main__":

@@ -10,6 +10,14 @@ raise. The JAX kernel's ``block_q``/``block_k`` knobs and its
 ``S % block_q == 0`` requirement have no counterpart: the CUDA kernels use
 fixed 64-row tiles and mask their own ragged edge.
 
+Training differentiates it through :class:`FlashAttention`, a
+``torch.autograd.Function``: its forward is the kernel (the plain version on
+the CPU), and its backward recomputes :func:`attention_plain` from the saved
+q, k and v in float32 and returns that function's vector-Jacobian product
+in the inputs' dtype. The JAX package has no backward kernel either (its
+training differentiates XLA's attention). A call that needs no gradient
+(serving, under ``torch.no_grad``) runs the forward alone, as before.
+
 The source holds two kernels, and :func:`kernel_for` picks one by dtype:
 both run on the tensor cores with their tiles brought in by TMA, bfloat16
 as bf16 products, float32 as split-TF32 products (three tf32 products per
@@ -155,13 +163,50 @@ def _check(q, k, v) -> None:
 
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """q: [B,S,H,hd]; k, v: [B,T,K,hd] with H = K·G -> [B,S,H,hd] in q's
-    dtype. Causal means key j is seen by query i iff j <= i."""
-    global LAUNCHES
+    dtype. Causal means key j is seen by query i iff j <= i.
+    Differentiable (:class:`FlashAttention`) where autograd asks for it."""
     _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
+
+
+def _plain(q, k, v, causal: bool) -> torch.Tensor:
+    """:func:`attention_plain` in the model's [B,S,H,hd] layout."""
+    o = attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal)
+    return o.transpose(1, 2).contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel's forward; the backward is the vector-Jacobian product of
+    :func:`attention_plain`, recomputed in float32 from the saved inputs
+    (the [B,H,S,T] scores exist only inside the backward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qf, kf, vf = (t.detach().float().requires_grad_()
+                          for t in (q, k, v))
+            out = _plain(qf, kf, vf, ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, (qf, kf, vf),
+                                             grad_out.float())
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def _forward(q, k, v, causal: bool) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    global LAUNCHES
     if q.device.type == "cpu":
-        o = attention_plain(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal)
-        return o.transpose(1, 2).contiguous()
+        return _plain(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")

@@ -7,6 +7,14 @@ plain version (:func:`repro_torch.kernels.ssd_scan.ref.ssd_chunk_plain`);
 CUDA tensors launch the kernel on the current stream, without
 synchronising, or raise. The kernel takes one (batch, chunk) and a group of
 heads per block; :func:`ssd_plan` states that launch plan in plain Python.
+
+Training differentiates the chunk step through :class:`SsdChunk`, a
+``torch.autograd.Function`` whose forward is the kernel (the plain version
+on the CPU) and whose backward is the vector-Jacobian product of
+:func:`ssd_chunk_plain`, recomputed from the saved inputs; the JAX package
+has no backward kernel either. A call that needs no gradient (serving,
+under ``torch.no_grad``) runs the forward alone. The rest of
+:func:`ssd_scan` is PyTorch ops, which autograd differentiates itself.
 """
 from __future__ import annotations
 
@@ -128,9 +136,36 @@ def ssd_chunk(x, dt, B, C, A):
     """Per (batch·head, chunk) intra-chunk SSD. x: [BH,nc,Q,P]; dt:
     [BH,nc,Q,1]; B, C: [Bsz,nc,Q,N] (the heads of a batch row share them);
     A: [BH,1]; all float32. Returns (y_intra [BH,nc,Q,P], states
-    [BH,nc,P,N], cum [BH,nc,Q,1])."""
-    global LAUNCHES
+    [BH,nc,P,N], cum [BH,nc,Q,1]). Differentiable (:class:`SsdChunk`) where
+    autograd asks for it."""
     _check(x, dt, B, C, A)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, B, C, A)):
+        return SsdChunk.apply(x, dt, B, C, A)
+    return _forward(x, dt, B, C, A)
+
+
+class SsdChunk(torch.autograd.Function):
+    """The kernel's forward; the backward is the vector-Jacobian product of
+    :func:`ssd_chunk_plain`, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B, C, A):
+        ctx.save_for_backward(x, dt, B, C, A)
+        return _forward(x, dt, B, C, A)
+
+    @staticmethod
+    def backward(ctx, dy, dst, dcum):
+        inputs = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in inputs]
+            outs = ssd_chunk_plain(*leaves)
+            return torch.autograd.grad(outs, leaves, (dy, dst, dcum))
+
+
+def _forward(x, dt, B, C, A):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    global LAUNCHES
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, B, C, A)
     if x.device.type != "cuda":
@@ -181,12 +216,15 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     cum = cum[..., 0]                                     # [BH, nc, Q]
     chunk_decay = torch.exp(cum[:, :, -1])                # [BH, nc]
 
-    # inter-chunk recurrence: the state entering each chunk
+    # inter-chunk recurrence: the state entering each chunk (collected in a
+    # list and stacked, not written into a buffer, so that autograd keeps
+    # every chunk's state)
     h = torch.zeros((Bsz * H, P, N), dtype=f32, device=x.device)
-    h_prev = torch.empty((Bsz * H, nc, P, N), dtype=f32, device=x.device)
+    entering = []
     for c in range(nc):
-        h_prev[:, c] = h
+        entering.append(h)
         h = h * chunk_decay[:, c, None, None] + states[:, c]
+    h_prev = torch.stack(entering, dim=1)                 # [BH, nc, P, N]
 
     # combine: y = y_intra + exp(cum)·(C · h_prev); C is read per batch row
     y_inter = torch.einsum("bcqn,bhcpn->bhcqp", Ck,

@@ -210,6 +210,92 @@ def causal_mask(S: int, T: int, offset: int = 0, device=None):
     return (j <= i)[None, None, None]
 
 
+def _divisor_block(n: int, target: int) -> int:
+    """The largest divisor of ``n`` that is at most ``target``."""
+    for d in range(min(target, n), 0, -1):
+        if n % d == 0:
+            return d
+    return n
+
+
+def blockwise_gqa_attend(q, k, v, *, causal: bool, block_q: int = 1024,
+                         block_k: int = 2048):
+    """Memory-bounded attention: a loop over query blocks, an inner loop
+    over KV blocks with an online softmax (the flash-attention dataflow in
+    PyTorch ops). Peak live score tile is [B,K,G,BQ,BK] instead of
+    [B,K,G,S,T]. Same math as :func:`gqa_attend`. The port's models run the
+    flash-attention kernel at every length instead (the JAX package
+    switches to this at S >= 8192)."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    bq = _divisor_block(S, block_q)
+    bk = _divisor_block(T, block_k)
+    scale = 1.0 / math.sqrt(hd)
+    # [nq,B,K,G,bq,hd] and [nk,B,K,bk,hd]
+    qb = q.reshape(B, S // bq, bq, K, G, hd).permute(1, 0, 3, 4, 2, 5)
+    kb = k.reshape(B, T // bk, bk, K, hd).permute(1, 0, 3, 2, 4)
+    vb = v.reshape(B, T // bk, bk, K, hd).permute(1, 0, 3, 2, 4)
+    outs = []
+    for qi in range(S // bq):
+        q_i = qb[qi].float()
+        acc = torch.zeros((B, K, G, bq, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, K, G, bq, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        denom = torch.zeros((B, K, G, bq, 1), dtype=torch.float32,
+                            device=q.device)
+        for kj in range(T // bk):
+            s = torch.einsum("bkgqd,bktd->bkgqt", q_i, kb[kj].float()) * scale
+            if causal:
+                rows = qi * bq + torch.arange(bq, device=q.device)[:, None]
+                cols = kj * bk + torch.arange(bk, device=q.device)[None, :]
+                s = torch.where(cols <= rows, s, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
+            pr = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            denom = denom * corr + torch.sum(pr, dim=-1, keepdim=True)
+            acc = acc * corr + torch.einsum("bkgqt,bktd->bkgqd", pr,
+                                            vb[kj].float())
+            m = m_new
+        outs.append(acc / torch.clamp(denom, min=1e-30))
+    # [nq,B,K,G,bq,hd] -> [B,S,H,hd]
+    out = torch.stack(outs).permute(1, 2, 3, 0, 4, 5).reshape(B, H, S, hd)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attention(p, x, cfg, positions, mask=None):
+    """Full-sequence attention through :func:`gqa_attend` (the JAX
+    package's block; the port's models run the flash-attention kernel
+    instead). Returns (out, (k, v))."""
+    q, k, v = qkv_proj(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.rope_theta,
+                       positions)
+    S = x.shape[1]
+    if mask is None:
+        mask = (causal_mask(S, S, device=x.device) if cfg.causal else
+                torch.ones((1, 1, 1, S, S), dtype=torch.bool,
+                           device=x.device))
+    out = gqa_attend(q, k, v, mask)
+    return out_proj(out, p["wo"]), (k, v)
+
+
+def attention_decode(p, x, cfg, cache_k, cache_v, pos: int):
+    """Single-token decode against a KV cache. x: [B,1,D]; cache_k/v:
+    [B,T,K,hd] (ring buffer, absolute positions), written at slot
+    ``pos % T`` in place (the JAX package returns new buffers). Returns
+    (out, (cache_k, cache_v))."""
+    positions = torch.full((x.shape[0], 1), pos, device=x.device)
+    q, k_new, v_new = qkv_proj(p, x, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.rope_theta, positions)
+    T = cache_k.shape[1]
+    slot = pos % T
+    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    valid = (torch.arange(T, device=x.device) <= pos)[None, None, None, None]
+    out = gqa_attend(q, cache_k, cache_v, valid)
+    return out_proj(out, p["wo"]), (cache_k, cache_v)
+
+
 def cross_attention(p, x, kv_cached, mask=None):
     """Encoder-decoder cross attention (whisper). kv_cached = (k, v) from
     the encoder output projections; no RoPE. Without a mask every query

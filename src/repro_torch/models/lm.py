@@ -24,21 +24,32 @@ counterpart), and every Mamba2 layer runs the SSD chunk kernel. Decode
 attention (one query against the cache) stays ``gqa_attend`` in PyTorch
 ops, as the JAX package leaves it to XLA.
 
-Weights that the JAX package casts to ``cfg.dtype`` where it uses them are
-cast once, when the module is built; the ones it reads in float32 stay
-float32: the norm weights (qk-norm's too), ``A_log``, ``D``, ``dt_bias``
-and ``norm_w``. :func:`init_params` casts each weight as it is drawn, so
-the float32 tree never exists whole on the device.
-Decode updates the cache tensors in place (the JAX package returns new
-ones), so a cache is not reused after a later step.
+Weights: a serving model (``LM(cfg, tree)``) holds the weights that the
+JAX package casts to ``cfg.dtype`` where it uses them cast once, when the
+module is built; the ones it reads in float32 stay float32: the norm
+weights (qk-norm's too), ``A_log``, ``D``, ``dt_bias`` and ``norm_w``.
+:func:`init_params` casts each weight as it is drawn, so the float32 tree
+never exists whole on the device. A trainable model (``LM(cfg, tree,
+trainable=True)``) keeps every weight in float32 with ``requires_grad``, as
+the JAX package keeps its master weights; the blocks cast at use, so
+compute still runs in ``cfg.dtype``.
+
+:func:`forward` is the training forward (differentiable; with ``cfg.remat``
+each layer, and each application of a hybrid's shared block, runs under
+``torch.utils.checkpoint``, as the JAX package wraps each layer in
+``jax.checkpoint``). ``prefill`` and ``decode_step`` run under
+``torch.no_grad``. Decode updates the cache tensors in place (the JAX
+package returns new ones), so a cache is not reused after a later step.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import blocks as B
@@ -87,6 +98,7 @@ class ModelConfig:
     n_vis_tokens: int = 0
     # execution
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
 
     @property
     def hd(self) -> int:
@@ -219,10 +231,19 @@ def leaf_dtype(cfg, path) -> torch.dtype:
     return cfg.dtype
 
 
-def _param_dict(tree: dict, dtype, keep_f32: bool) -> nn.ParameterDict:
+def _param(v: torch.Tensor, dtype, trainable: bool) -> nn.Parameter:
+    """A weight as a module holds it: float32 with a gradient when
+    ``trainable``, else cast to ``dtype`` without one."""
+    if trainable:
+        return nn.Parameter(v.to(torch.float32), requires_grad=True)
+    return nn.Parameter(v.to(dtype), requires_grad=False)
+
+
+def _param_dict(tree: dict, dtype, keep_f32: bool,
+                trainable: bool = False) -> nn.ParameterDict:
     return nn.ParameterDict({
-        k: nn.Parameter(v.to(torch.float32 if keep_f32 or k in _F32_KEYS
-                             else dtype), requires_grad=False)
+        k: _param(v, torch.float32 if keep_f32 or k in _F32_KEYS else dtype,
+                  trainable)
         for k, v in tree.items()})
 
 
@@ -230,8 +251,9 @@ class _Layer(nn.ModuleDict):
     """One layer's parameter dicts, indexed like the JAX tree
     (``p["attn"]["wq"]``), so the block functions take it as ``p``."""
 
-    def __init__(self, tree: dict, dtype):
-        super().__init__({name: _param_dict(sub, dtype, name in _NORMS)
+    def __init__(self, tree: dict, dtype, trainable: bool = False):
+        super().__init__({name: _param_dict(sub, dtype, name in _NORMS,
+                                            trainable)
                           for name, sub in tree.items()})
 
 
@@ -254,44 +276,73 @@ class MoELayer(_Layer):
 class LM(nn.Module):
     """The model's parameters, built from a tree in the layout of
     :func:`model_specs` (float32 tensors, as :func:`init_params` and
-    ``convert.params_from_jax`` make them). Calling it runs
-    :func:`forward`."""
+    ``convert.params_from_jax`` make them): cast for serving, or float32
+    with gradients when ``trainable``. Calling it runs :func:`forward`."""
 
-    def __init__(self, cfg: ModelConfig, tree: dict):
+    def __init__(self, cfg: ModelConfig, tree: dict, trainable: bool = False):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
+        self.trainable = trainable
         dt = cfg.dtype
-        self.embed = nn.Parameter(tree["embed"].to(dt), requires_grad=False)
-        self.final_norm = _param_dict(tree["final_norm"], dt, True)
-        self.unembed = (nn.Parameter(tree["unembed"].to(dt),
-                                     requires_grad=False)
+        self.embed = _param(tree["embed"], dt, trainable)
+        self.final_norm = _param_dict(tree["final_norm"], dt, True, trainable)
+        self.unembed = (_param(tree["unembed"], dt, trainable)
                         if "unembed" in tree else None)
-        self.vis_proj = (nn.Parameter(tree["vis_proj"].to(dt),
-                                      requires_grad=False)
+        self.vis_proj = (_param(tree["vis_proj"], dt, trainable)
                          if "vis_proj" in tree else None)
         if cfg.family == "hybrid":
             self.groups = nn.ModuleList(
-                nn.ModuleList(Mamba2Layer(p, dt) for p in g)
+                nn.ModuleList(Mamba2Layer(p, dt, trainable) for p in g)
                 for g in tree["groups"])
-            self.shared = DenseLayer(tree["shared"], dt)
-            self.tail = nn.ModuleList(Mamba2Layer(p, dt)
+            self.shared = DenseLayer(tree["shared"], dt, trainable)
+            self.tail = nn.ModuleList(Mamba2Layer(p, dt, trainable)
                                       for p in tree.get("tail", []))
         else:
             cls = {"ssm": Mamba2Layer, "moe": MoELayer}.get(cfg.family,
                                                             DenseLayer)
-            self.layers = nn.ModuleList(cls(p, dt) for p in tree["layers"])
+            self.layers = nn.ModuleList(cls(p, dt, trainable)
+                                        for p in tree["layers"])
 
     def forward(self, tokens, vis_embeds=None):
         return forward(self.cfg, self, tokens, vis_embeds)
 
 
-def init_params(cfg, generator: torch.Generator, device) -> LM:
+def init_params(cfg, generator: torch.Generator, device,
+                trainable: bool = False) -> LM:
     """Random weights from ``generator`` on ``device``, with the JAX
-    package's init distributions, each cast as it is drawn."""
-    return LM(cfg, B.build_params(
-        generator, model_specs(cfg), device,
-        lambda path, w: w.to(leaf_dtype(cfg, path))))
+    package's init distributions, each cast as it is drawn (kept float32
+    when ``trainable``)."""
+    def finish(path, w):
+        return w if trainable else w.to(leaf_dtype(cfg, path))
+    return LM(cfg, B.build_params(generator, model_specs(cfg), device,
+                                  finish), trainable)
+
+
+def nest(named: dict) -> dict:
+    """The tree of a model from its ``named_parameters`` names
+    (``groups.0.3.mamba.in_proj`` -> tree["groups"][0][3]["mamba"]
+    ["in_proj"]): integer keys become lists."""
+    tree: dict = {}
+    for name, t in named.items():
+        node, keys = tree, name.split(".")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = t
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(tree)
+
+
+def rebuild(model: nn.Module, tensors: dict) -> nn.Module:
+    """A model of ``model``'s class, config and trainability holding
+    ``tensors`` (by parameter name; float32 tensors are not copied)."""
+    return type(model)(model.cfg, nest(tensors), trainable=model.trainable)
 
 
 # --------------------------------------------------------------------------
@@ -385,36 +436,64 @@ def _embed(cfg, params, tokens, vis_embeds=None):
     return x
 
 
+def unembed_matrix(cfg, params):
+    """[D, V] output projection (tied or untied), in ``cfg.dtype``."""
+    w = params.embed.T if cfg.tie_embeddings else params.unembed
+    return w.to(cfg.dtype)
+
+
 def _logits(cfg, params, x):
     x = _apply_norm(cfg, params.final_norm, x)
-    w = params.embed.T if cfg.tie_embeddings else params.unembed
-    return x @ w.to(cfg.dtype)
+    return x @ unembed_matrix(cfg, params)
 
 
-@torch.no_grad()
+def remat(cfg, fn, x, *args):
+    """``fn(x, *args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``
+    is set and autograd records ``x``: only the inputs are kept, and the
+    backward runs ``fn`` again (its kernels too). The model draws no random
+    numbers, so no RNG state is stashed."""
+    if cfg.remat and torch.is_grad_enabled() and x.requires_grad:
+        return checkpoint(fn, x, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(x, *args)
+
+
+def _dense_remat(cfg, p, x, positions):
+    """A dense or MoE layer without its (k, v): (x, aux or None)."""
+    x, _, aux = dense_layer(cfg, p, x, positions)
+    return x, aux
+
+
 def forward(cfg, params: LM, tokens, vis_embeds=None,
-            return_aux: bool = False):
-    """Full-sequence forward: tokens [B,S] -> logits [B,S(+vis),V]; with
-    ``return_aux`` (logits, the MoE aux loss summed over layers, float32,
-    0 for the other families)."""
+            return_aux: bool = False, return_hidden: bool = False):
+    """Training forward: tokens [B,S] -> logits [B,S(+vis),V]; with
+    ``return_aux`` (logits, aux), aux being the MoE loss summed over layers
+    (float32, 0 for the other families). ``return_hidden`` returns the
+    JAX forward's (final-normed hidden [B,S(+vis),D], aux) instead: the
+    chunked-loss path never materialises [B,S,V]. Differentiable; under
+    ``torch.no_grad`` it builds no graph and no checkpoint."""
     x = _embed(cfg, params, tokens, vis_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         for p in params.layers:
-            x = ssm_layer(cfg, p, x)
+            x = remat(cfg, functools.partial(ssm_layer, cfg, p), x)
     elif cfg.family == "hybrid":
         for group in params.groups:
             for p in group:
-                x = ssm_layer(cfg, p, x)
-            x, _, _ = dense_layer(cfg, params.shared, x, positions)
+                x = remat(cfg, functools.partial(ssm_layer, cfg, p), x)
+            x, _ = remat(cfg, functools.partial(_dense_remat, cfg,
+                                                params.shared), x, positions)
         for p in params.tail:
-            x = ssm_layer(cfg, p, x)
+            x = remat(cfg, functools.partial(ssm_layer, cfg, p), x)
     else:
         for p in params.layers:
-            x, _, aux_l = dense_layer(cfg, p, x, positions)
+            x, aux_l = remat(cfg, functools.partial(_dense_remat, cfg, p), x,
+                             positions)
             if aux_l is not None:
                 aux = aux + aux_l
+    if return_hidden:
+        return _apply_norm(cfg, params.final_norm, x), aux
     logits = _logits(cfg, params, x)
     return (logits, aux) if return_aux else logits
 

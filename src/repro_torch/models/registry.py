@@ -3,7 +3,10 @@
 
     api = get_model(cfg)                   # on the card unless device="cpu"
     params = api.init(generator)           # an LM or Whisper on api.device
+    params = api.init(generator, trainable=True)   # float32, with gradients
     api.forward(params, batch)             -> logits [B,S,V]
+    api.forward_hidden(params, batch)      -> (hidden [B,S,D], aux)
+    api.unembed(params)                    -> [D, V]
     api.prefill(params, batch, max_len)    -> (logits [B,1,V], cache)
     api.decode(params, cache, tokens, pos) -> (logits [B,1,V], cache)
     api.init_cache(batch, max_len) / api.count_params() / api.active_params()
@@ -40,8 +43,11 @@ def model_specs(cfg: ModelConfig) -> dict:
 class ModelApi:
     cfg: ModelConfig
     device: torch.device
-    init: Callable          # (torch.Generator) -> LM or Whisper on device
+    init: Callable          # (torch.Generator, trainable=False) -> LM or
+    #                         Whisper on device
     forward: Callable       # (params, batch) -> logits
+    forward_hidden: Callable  # (params, batch) -> (hidden, aux)
+    unembed: Callable       # params -> [D, V]
     prefill: Callable       # (params, batch, max_len) -> (logits, cache)
     decode: Callable        # (params, cache, tokens, pos) -> (logits, cache)
     init_cache: Callable    # (batch, max_len) -> cache
@@ -76,9 +82,14 @@ def _lm_api(cfg: ModelConfig, dev: torch.device) -> ModelApi:
     return ModelApi(
         cfg=cfg,
         device=dev,
-        init=lambda generator: lm.init_params(cfg, generator, dev),
+        init=lambda generator, trainable=False: lm.init_params(
+            cfg, generator, dev, trainable),
         forward=lambda params, batch: lm.forward(
             cfg, params, batch["tokens"], vis_embeds=vis(batch)),
+        forward_hidden=lambda params, batch: lm.forward(
+            cfg, params, batch["tokens"], vis_embeds=vis(batch),
+            return_hidden=True),
+        unembed=lambda params: lm.unembed_matrix(cfg, params),
         prefill=lambda params, batch, max_len: lm.prefill(
             cfg, params, batch["tokens"], max_len, vis_embeds=vis(batch)),
         decode=lambda params, cache, tokens, pos: lm.decode_step(
@@ -92,9 +103,14 @@ def _whisper_api(cfg: ModelConfig, dev: torch.device) -> ModelApi:
     return ModelApi(
         cfg=cfg,
         device=dev,
-        init=lambda generator: whisper.init_params(cfg, generator, dev),
+        init=lambda generator, trainable=False: whisper.init_params(
+            cfg, generator, dev, trainable),
         forward=lambda params, batch: whisper.forward(
             cfg, params, batch["tokens"], batch["frames"]),
+        forward_hidden=lambda params, batch: whisper.forward(
+            cfg, params, batch["tokens"], batch["frames"],
+            return_hidden=True),
+        unembed=lambda params: whisper.unembed_matrix(cfg, params),
         prefill=lambda params, batch, max_len: whisper.prefill(
             cfg, params, batch["tokens"], batch["frames"], max_len),
         decode=lambda params, cache, tokens, pos: whisper.decode_step(

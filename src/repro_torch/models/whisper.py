@@ -15,8 +15,15 @@ kernel — the encoder's self-attention and the decoder's cross-attention
 non-causal, the decoder's self-attention causal. Decode attention (one
 query against the self-attention cache and the cross-attention keys) stays
 ``gqa_attend`` in PyTorch ops.
+
+Training: ``Whisper(cfg, tree, trainable=True)`` keeps float32 weights with
+gradients, and :func:`forward` is differentiable, each encoder and decoder
+layer under ``torch.utils.checkpoint`` when ``cfg.remat`` is set (as
+``lm.py``); ``prefill`` and ``decode_step`` run under ``torch.no_grad``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -25,7 +32,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import blocks as B
 from repro_torch.models.blocks import ParamSpec
 from repro_torch.models.lm import (DenseLayer, _apply_norm, _Layer,
-                                   _norm_specs, _param_dict, leaf_dtype)
+                                   _norm_specs, _param, _param_dict,
+                                   leaf_dtype, remat)
 
 
 def sinusoid_pos(S: int, D: int, offset: int = 0, device=None):
@@ -76,35 +84,40 @@ class DecoderLayer(_Layer):
 
 class Whisper(nn.Module):
     """The model's parameters, built from a tree in the layout of
-    :func:`model_specs` (float32 tensors)."""
+    :func:`model_specs` (float32 tensors): cast for serving, or float32
+    with gradients when ``trainable``."""
 
-    def __init__(self, cfg, tree: dict):
+    def __init__(self, cfg, tree: dict, trainable: bool = False):
         super().__init__()
         if cfg.family != "encdec":
             raise ValueError(f"Whisper takes an encdec config, not "
                              f"{cfg.family!r}")
         self.cfg = cfg
+        self.trainable = trainable
         dt = cfg.dtype
-        self.embed = nn.Parameter(tree["embed"].to(dt), requires_grad=False)
-        self.frame_proj = nn.Parameter(tree["frame_proj"].to(dt),
-                                       requires_grad=False)
-        self.enc_layers = nn.ModuleList(DenseLayer(p, dt)
+        self.embed = _param(tree["embed"], dt, trainable)
+        self.frame_proj = _param(tree["frame_proj"], dt, trainable)
+        self.enc_layers = nn.ModuleList(DenseLayer(p, dt, trainable)
                                         for p in tree["enc_layers"])
-        self.enc_norm = _param_dict(tree["enc_norm"], dt, True)
-        self.dec_layers = nn.ModuleList(DecoderLayer(p, dt)
+        self.enc_norm = _param_dict(tree["enc_norm"], dt, True, trainable)
+        self.dec_layers = nn.ModuleList(DecoderLayer(p, dt, trainable)
                                         for p in tree["dec_layers"])
-        self.final_norm = _param_dict(tree["final_norm"], dt, True)
+        self.final_norm = _param_dict(tree["final_norm"], dt, True,
+                                      trainable)
 
     def forward(self, tokens, frames):
         return forward(self.cfg, self, tokens, frames)
 
 
-def init_params(cfg, generator: torch.Generator, device) -> Whisper:
+def init_params(cfg, generator: torch.Generator, device,
+                trainable: bool = False) -> Whisper:
     """Random weights from ``generator`` on ``device``, with the JAX
-    package's init distributions, each cast as it is drawn."""
-    return Whisper(cfg, B.build_params(
-        generator, model_specs(cfg), device,
-        lambda path, w: w.to(leaf_dtype(cfg, path))))
+    package's init distributions, each cast as it is drawn (kept float32
+    when ``trainable``)."""
+    def finish(path, w):
+        return w if trainable else w.to(leaf_dtype(cfg, path))
+    return Whisper(cfg, B.build_params(generator, model_specs(cfg), device,
+                                       finish), trainable)
 
 
 def _self_attn(cfg, p, x, causal: bool):
@@ -114,18 +127,21 @@ def _self_attn(cfg, p, x, causal: bool):
     return B.out_proj(o, p["attn"]["wo"]), (k, v)
 
 
-@torch.no_grad()
+def _enc_layer(cfg, p, x):
+    h = _apply_norm(cfg, p["ln1"], x)
+    o, _ = _self_attn(cfg, p, h, causal=False)
+    x = x + o
+    h = _apply_norm(cfg, p["ln2"], x)
+    return x + B.mlp(p["mlp"], h, cfg.act)
+
+
 def encode(cfg, params: Whisper, frames):
     """frames [B,T,D] -> encoder output [B,T,D] in ``cfg.dtype``."""
     dt = cfg.dtype
     x = frames.to(dt) @ params.frame_proj.to(dt)
     x = x + sinusoid_pos(x.shape[1], cfg.d_model, device=x.device).to(dt)[None]
     for p in params.enc_layers:
-        h = _apply_norm(cfg, p["ln1"], x)
-        o, _ = _self_attn(cfg, p, h, causal=False)
-        x = x + o
-        h = _apply_norm(cfg, p["ln2"], x)
-        x = x + B.mlp(p["mlp"], h, cfg.act)
+        x = remat(cfg, functools.partial(_enc_layer, cfg, p), x)
     return _apply_norm(cfg, params.enc_norm, x)
 
 
@@ -148,18 +164,32 @@ def _embed(cfg, params, tokens, offset: int = 0):
                             device=y.device).to(dt)[None]
 
 
+def unembed_matrix(cfg, params):
+    """[D, V]: the tied embedding, in ``cfg.dtype``."""
+    return params.embed.to(cfg.dtype).T
+
+
 def _logits(cfg, params, y):
     y = _apply_norm(cfg, params.final_norm, y)
-    return y @ params.embed.to(cfg.dtype).T
+    return y @ unembed_matrix(cfg, params)
 
 
-@torch.no_grad()
-def forward(cfg, params: Whisper, tokens, frames):
-    """Full forward: tokens [B,St], frames [B,T,D] -> logits [B,St,V]."""
+def _dec_remat(cfg, p, y, enc_out):
+    return _dec_layer(cfg, p, y, enc_out)[0]
+
+
+def forward(cfg, params: Whisper, tokens, frames,
+            return_hidden: bool = False):
+    """Training forward: tokens [B,St], frames [B,T,D] -> logits [B,St,V];
+    ``return_hidden`` returns the JAX forward's (final-normed hidden
+    [B,St,D], None) instead. Differentiable; under ``torch.no_grad`` it
+    builds no graph and no checkpoint."""
     enc_out = encode(cfg, params, frames)
     y = _embed(cfg, params, tokens)
     for p in params.dec_layers:
-        y, _, _ = _dec_layer(cfg, p, y, enc_out)
+        y = remat(cfg, functools.partial(_dec_remat, cfg, p), y, enc_out)
+    if return_hidden:
+        return _apply_norm(cfg, params.final_norm, y), None
     return _logits(cfg, params, y)
 
 

@@ -3,10 +3,13 @@ run the same way on the CPU: ``REPRO_SMOKE=1`` and the same smaller module
 constants on both sides. The numbers each prints (rounded as printed) agree
 at 1e-4 relative, and the text around them is the same.
 
-``port_serve_decode.py`` draws its weights from a ``torch.Generator``, not
-from ``jax.random``, so its tokens differ from the JAX example's: the test
-holds the request and token counts instead (the LM itself is held to JAX in
-tests/test_torch_lm.py)."""
+``port_serve_decode.py``, ``port_train_lm.py`` and the LM half of
+``port_quickstart.py`` draw their weights from a ``torch.Generator``, not
+from ``jax.random``, so their tokens and losses differ from the JAX
+examples': the tests hold the counts instead (requests, tokens, steps, the
+driver's events, the uniform-loss baseline), and the LM and its training
+are held to JAX in tests/test_torch_lm.py and tests/test_torch_train*.py.
+The stream half of the quickstart prints numbers held at 1e-4 as above."""
 import importlib.util
 import re
 import sys
@@ -109,6 +112,76 @@ def test_port_serve_decode_counts_match_jax(capsys, monkeypatch):
     assert all(r.done and len(r.out) == 6 for r in reqs)
     for g, w in zip(got[1:], want[1:]):
         assert len(NUM.findall(g)) == len(NUM.findall(w))
+
+
+@pytest.fixture
+def one_torch_thread():
+    """A training example's tiny model is many small ops a step, which
+    torch's thread pool only slows, and badly when other test workers share
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _numbers(line: str) -> list[float]:
+    return [float(x) for x in NUM.findall(line)]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_port_train_lm_counts_match_jax(capsys, monkeypatch, tmp_path):
+    """The same run on both sides (6 steps, checkpoints every 3, a failure
+    injected at step 4): the same printed lines, parameter count, steps,
+    uniform baseline and driver events (restart from the step-3
+    checkpoint). The JAX driver's restore does not wait for a save still
+    on its thread, so its saves are made blocking here (the port's restore
+    waits for it)."""
+    from repro.train.checkpoint import Checkpointer as JaxCheckpointer
+
+    monkeypatch.setattr(JaxCheckpointer, "save_async",
+                        lambda self, step, state: self.save(step, state))
+    args = ["--steps", "6", "--ckpt-every", "3", "--inject-failure", "4",
+            "--batch", "4", "--seq", "32"]
+    monkeypatch.setattr(sys, "argv", ["train_lm.py", *args, "--ckpt-dir",
+                                      str(tmp_path / "jax")])
+    capsys.readouterr()
+    _load(EXAMPLES / "train_lm.py").main()
+    want = capsys.readouterr().out.splitlines()
+    drv = _load(EXAMPLES / "port_train_lm.py").main(
+        [*args, "--ckpt-dir", str(tmp_path / "port"), "--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert NUM.sub("#", g) == NUM.sub("#", w), (g, w)
+    assert got[0] == want[0]                      # arch, preset, params
+    assert _numbers(got[1])[0] == _numbers(want[1])[0] == 6
+    assert _numbers(got[2])[-1] == _numbers(want[2])[-1]   # ln(V)
+    assert got[3:] == want[3:]                    # failure, restart
+    assert drv.events[-1] == (3, "restart-from-ckpt")
+    assert all(np.isfinite(m["loss"]) for m in drv.metrics)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_port_quickstart_matches_jax(capsys, monkeypatch):
+    monkeypatch.setenv("REPRO_SMOKE", "1")
+    jax_mod = _load(EXAMPLES / "quickstart.py")
+    capsys.readouterr()
+    jax_mod.stream_demo()
+    jax_mod.lm_demo()
+    want = capsys.readouterr().out.splitlines()
+    req = _load(EXAMPLES / "port_quickstart.py").main(["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 10
+    for g, w in zip(got, want):
+        assert NUM.sub("#", g) == NUM.sub("#", w), (g, w)
+    for g, w in zip(got[:3], want[:3]):          # the stream demo
+        np.testing.assert_allclose(_numbers(g), _numbers(w), rtol=1e-4,
+                                   atol=0.0, err_msg=f"{g!r} vs {w!r}")
+    steps = [_numbers(g)[0] for g in got[4:9]]
+    assert steps == [_numbers(w)[0] for w in want[4:9]] == [0, 10, 20, 30,
+                                                               40]
+    assert len(req.out) == 8 and req.done
 
 
 @pytest.mark.parametrize("path", sorted(EXAMPLES.glob("port_*.py")),

@@ -605,3 +605,139 @@ def test_faulted_campaign_on_card(tmp_path):
                              checkpoint=ck, **kw)
     assert runner.last_stats["n_dispatches"] == n_chunks - done
     np.testing.assert_array_equal(cr.metrics, clean)
+
+
+# ---- the training path ----------------------------------------------------
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal", [
+    (2, 200, 200, 8, 2, 64, True),
+    (1, 64, 300, 6, 6, 32, False),
+])
+def test_flash_attention_backward_on_card_matches_cpu(B, S, T, H, K, hd,
+                                                       causal, dtype, tol):
+    """``FlashAttention`` on the card (the kernel forward, the plain vjp
+    backward) against the same function on the CPU: outputs and the q, k, v
+    gradients within ``tol`` of their largest magnitude (float32: fp32
+    matmuls; bfloat16: the kernel's forward and the gradients' cast)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dev = _cuda()
+    dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(S + T)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd))]
+    go = torch.tensor(rng.standard_normal((B, S, H, hd)), dtype=dtype)
+    res = {}
+    for side in ("cuda", "cpu"):
+        ins = [torch.tensor(a, dtype=dtype, device=side).requires_grad_()
+               for a in arrs]
+        before = fa.LAUNCHES
+        out = fa.flash_attention(*ins, causal=causal)
+        grads = torch.autograd.grad(out, ins, go.to(side))
+        assert fa.LAUNCHES - before == (1 if side == "cuda" else 0)
+        res[side] = [t.detach().float().cpu() for t in (out, *grads)]
+    for got, want in zip(res["cuda"], res["cpu"]):
+        assert float((got - want).abs().max()) <= tol * float(
+            want.abs().max())
+
+
+def test_ssd_chunk_backward_on_card_matches_cpu():
+    """``SsdChunk`` on the card against the CPU: the three outputs and the
+    five input gradients within 1e-4 of their largest magnitude."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    _cuda()
+    rng = np.random.default_rng(3)
+    BH, nc, Q, P, N, Bsz = 2 * 8, 4, 128, 64, 64, 2
+    arrs = [rng.standard_normal((BH, nc, Q, P)) * 0.5,
+            rng.uniform(0.01, 0.2, (BH, nc, Q, 1)),
+            rng.standard_normal((Bsz, nc, Q, N)) * 0.5,
+            rng.standard_normal((Bsz, nc, Q, N)) * 0.5,
+            -rng.uniform(0.5, 2.0, (BH, 1))]
+    cots = [torch.tensor(rng.standard_normal(s), dtype=torch.float32)
+            for s in ((BH, nc, Q, P), (BH, nc, P, N), (BH, nc, Q, 1))]
+    res = {}
+    for side in ("cuda", "cpu"):
+        ins = [torch.tensor(a, dtype=torch.float32,
+                            device=side).requires_grad_() for a in arrs]
+        before = ssd.LAUNCHES
+        outs = ssd.ssd_chunk(*ins)
+        grads = torch.autograd.grad(outs, ins, [c.to(side) for c in cots])
+        assert ssd.LAUNCHES - before == (1 if side == "cuda" else 0)
+        res[side] = [t.detach().cpu() for t in (*outs, *grads)]
+    for got, want in zip(res["cuda"], res["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+
+
+@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "mamba2-370m",
+                                  "zamba2-1.2b"])
+def test_train_step_on_card_matches_cpu(name):
+    """One float32 train step of a 2-layer reduced model (zamba2: one group
+    of 2 Mamba2 layers and the shared block) on the card, through the
+    kernels, against the CPU: the loss within 1e-5 relative, every gradient
+    leaf within 1e-4·max|g_leaf|, and the kernels launched once in the
+    forward and once in the recompute."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.models.lm import rebuild
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.step import make_train_step
+
+    _cuda()
+    over = {"n_layers": 2, "ssd_chunk": 32}
+    if name == "zamba2-1.2b":
+        over["hybrid_attn_every"] = 2
+    cfg = get_config(name).reduced(**over)
+    api, cpu_api = get_model(cfg), get_model(cfg, device="cpu")
+    model = api.init(torch.Generator(device="cuda").manual_seed(0),
+                     trainable=True)
+    cpu_model = rebuild(model, {k: p.detach().cpu()
+                                for k, p in model.named_parameters()})
+    b = SyntheticLM(vocab=cfg.vocab, seq_len=128, global_batch=2).batch(0)
+    res = {}
+    for side, a, m in (("cuda", api, model), ("cpu", cpu_api, cpu_model)):
+        batch = {k: torch.as_tensor(v, dtype=torch.long, device=side)
+                 for k, v in b.items()}
+        kept = {}
+        opt = AdamW(lr=1e-3)
+        f0, s0 = fa.LAUNCHES, ssd.LAUNCHES
+        _, _, met = make_train_step(
+            a, opt, grad_transform=lambda g: kept.update(g) or g)(
+            m, opt.init(m), batch)
+        res[side] = (float(met["loss"]), kept,
+                     (fa.LAUNCHES - f0, ssd.LAUNCHES - s0))
+    loss, grads, launched = res["cuda"]
+    cpu_loss, cpu_grads, cpu_launched = res["cpu"]
+    attn = {"qwen1.5-0.5b": 2, "mamba2-370m": 0, "zamba2-1.2b": 1}[name]
+    mamba = 0 if name == "qwen1.5-0.5b" else 2
+    assert launched == (2 * attn, 2 * mamba) and cpu_launched == (0, 0)
+    assert abs(loss / cpu_loss - 1) <= 1e-5
+    for k, g in cpu_grads.items():
+        assert float((grads[k].cpu() - g).abs().max()) <= 1e-4 * float(
+            g.abs().max()), k
+
+
+def test_checkpoint_restores_onto_the_card(tmp_path):
+    """A state saved from the CPU comes back on the card by default."""
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.optim import AdamW
+
+    _cuda()
+    api = get_model(get_config("qwen1.5-0.5b").reduced(n_layers=2),
+                    device="cpu")
+    params = api.init(torch.Generator().manual_seed(0), trainable=True)
+    opt_state = AdamW().init(params)
+    ck = Checkpointer(tmp_path)
+    ck.save(3, {"params": params, "opt": opt_state})
+    state, step = ck.restore({"params": params, "opt": opt_state})
+    assert step == 3
+    for (n, a), (_, b) in zip(params.named_parameters(),
+                              state["params"].named_parameters()):
+        assert b.device.type == "cuda" and b.requires_grad
+        assert torch.equal(a, b.cpu()), n
+    assert state["opt"].step.device.type == "cuda"
+    assert all(t.device.type == "cuda" for t in state["opt"].m.values())

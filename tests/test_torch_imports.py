@@ -1,6 +1,7 @@
 """The port must run on a machine that has no JAX: no module of
-``src/repro_torch/``, not ``chip_smoke.py`` and no ``examples/port_*.py`` may
-import ``jax`` or anything of the JAX package ``repro``. Checked statically
+``src/repro_torch/``, not ``chip_smoke.py``, ``tools/port_profile.py`` or any
+``examples/port_*.py`` may import ``jax`` or anything of the JAX package
+``repro``. Checked statically
 (every import statement, with ``ast``) and by importing the entry points and
 the examples in a subprocess where ``jax`` and ``repro`` cannot be
 imported."""
@@ -14,7 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py"))
+         + [ROOT / "chip_smoke.py", ROOT / "tools" / "port_profile.py"]
          + sorted((ROOT / "examples").glob("port_*.py")))
 
 
@@ -47,12 +49,16 @@ def test_guard_sees_the_whole_port():
                  "kernels/waterfill/ops.py", "streams/simulator.py",
                  "core/tcp.py", "core/multiapp.py", "configs/paper_stream.py",
                  "configs/yi_6b.py", "models/whisper.py",
-                 "configs/qwen3_moe_235b.py", "configs/whisper_tiny.py"):
+                 "configs/qwen3_moe_235b.py", "configs/whisper_tiny.py",
+                 "data/pipeline.py", "train/optim.py", "train/step.py",
+                 "train/compression.py", "train/checkpoint.py",
+                 "train/driver.py"):
         assert must in names
     examples = {p.name for p in FILES if p.parent.name == "examples"}
     for must in ("port_multiapp_fairness.py", "port_stream_allocator_demo.py",
                  "port_dynamic_failure.py", "port_fleet_sweep.py",
-                 "port_campaign_sweep.py", "port_serve_decode.py"):
+                 "port_campaign_sweep.py", "port_serve_decode.py",
+                 "port_train_lm.py", "port_quickstart.py"):
         assert must in examples
 
 
@@ -89,6 +95,10 @@ import repro_torch.kernels.waterfill.ops
 import repro_torch.streams
 import repro_torch.core
 import repro_torch.configs.paper_stream
+import repro_torch.data
+import repro_torch.train
+import repro_torch.train.compression
+import repro_torch.train.driver
 import runpy
 for ex in sorted(__import__("pathlib").Path("examples").glob("port_*.py")):
     runpy.run_path(str(ex), run_name="example")

@@ -1,10 +1,12 @@
 """Where the time goes in the PyTorch port, on one CUDA card.
 
     python3 tools/port_profile.py [sim] [fleet] [serve [ARCH[:LAYERS] ...]]
+    python3 tools/port_profile.py train [ARCH[:LAYERS]]
 
-(no argument: all three parts; ``serve`` alone profiles zamba2-1.2b and
-yi-6b, and ``serve qwen3-moe-235b-a22b:8 whisper-tiny`` the named archs,
-cut to LAYERS layers where given).
+(no argument: sim, fleet and serve; ``serve`` alone profiles zamba2-1.2b
+and yi-6b, and ``serve qwen3-moe-235b-a22b:8 whisper-tiny`` the named
+archs, cut to LAYERS layers where given; ``train`` alone profiles one
+zamba2-1.2b train step).
 
 Simulation: for the paper-grid cell (TT on big_switch(8, 1.25)) and the
 datacenter cell (TT at 64-way parallelism on a 256-machine fat-tree, as in
@@ -22,7 +24,15 @@ vlm's 256 seeded patch embeddings before them; whisper: 4 tokens and 1,500
 seeded frames), and 8 decode steps of 4 tokens, each warmed up, timed and
 profiled the same way.
 
-Prints per unit (tick, prefill, decode step) the wall time of the timed
+Training: one train step of the arch at full width (float32 weights and
+AdamW states, bfloat16 compute, remat on; random weights from a seed) on
+B 2 x S 4096 tokens of ``SyntheticLM``, as ``chip_smoke.py`` phase 18 runs
+it. The step is split into its forward (the loss), its backward (autograd:
+the recompute of every checkpointed layer, then the gradients) and the
+AdamW update, each timed with CUDA events; the recompute is one more
+forward, so backward minus forward is the gradients' own time.
+
+Prints per unit (tick, prefill, decode step, train step) the wall time of the timed
 run, the summed device time of all device activities in the profiled run,
 the device's idle share (1 − device/wall), and the kernels that take most
 device time. Imports no JAX; needs a CUDA device.
@@ -132,6 +142,65 @@ def _serve(arch: str, n_layers: int | None = None,
     torch.cuda.empty_cache()
 
 
+def _train(arch: str, n_layers: int | None = None, B: int = 2,
+           S: int = 4096) -> None:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.train.optim import AdamW, apply_updates, warmup_cosine
+    from repro_torch.train.step import make_loss_fn, make_train_step
+
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    api = get_model(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(0),
+                      trainable=True)
+    opt = AdamW(lr=warmup_cosine(3e-4, warmup=2, total=8))
+    state = [params, opt.init(params)]
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device="cuda")
+             for k, v in pipe.batch(0).items()}
+    step = make_train_step(api, opt)
+
+    def run():
+        state[:] = step(*state, batch)[:2]
+    label = (f"{arch}{'' if n_layers is None else f' ({n_layers} layers)'} "
+             f"train [{B} x {S} tokens]")
+    _report(f"{label} step", run, 1, "step")
+
+    # the step's parts, each timed with CUDA events over 3 steps
+    loss_fn = make_loss_fn(api)
+    parts = {"forward": 0.0, "backward": 0.0, "update": 0.0}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for _ in range(3):
+        p, o = state
+        ev[0].record()
+        loss, _ = loss_fn(p, batch)
+        ev[1].record()
+        names, leaves = zip(*p.named_parameters())
+        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        ev[2].record()
+        with torch.no_grad():
+            upd, o, _ = opt.update(grads, o, p)
+            state[:] = [apply_updates(p, upd), o]
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(parts):
+            parts[k] += ev[i].elapsed_time(ev[i + 1]) / 3
+        del loss, grads, upd
+    print(f"{label} by part (CUDA events, ms): forward {parts['forward']:.3f}"
+          f", backward {parts['backward']:.3f} (of which the recompute is "
+          f"~one forward; gradients alone ~"
+          f"{parts['backward'] - parts['forward']:.3f}), update "
+          f"{parts['update']:.3f}")
+    del state[:]
+    torch.cuda.empty_cache()
+
+
 def _fleet() -> None:
     from repro_torch.streams import (FleetRunner, bench_fleet,
                                      campaign_fleet, compile_fleet)
@@ -174,10 +243,10 @@ def main() -> int:
     from repro_torch.models.registry import list_archs
 
     args = sys.argv[1:] or ["sim", "fleet", "serve"]
-    parts = [a for a in args if a in ("sim", "fleet", "serve")]
+    parts = [a for a in args if a in ("sim", "fleet", "serve", "train")]
     archs = [a for a in args if a not in parts]
     unknown = {a for a in archs if a.split(":")[0] not in list_archs()}
-    if archs and "serve" not in parts:
+    if archs and "serve" not in parts and "train" not in parts:
         unknown |= set(archs)
     if unknown:
         print(f"port_profile: unknown parts {sorted(unknown)}",
@@ -198,6 +267,10 @@ def main() -> int:
         for arch in archs or ["zamba2-1.2b", "yi-6b"]:
             name, _, layers = arch.partition(":")
             _serve(name, int(layers) if layers else None)
+    if "train" in parts:
+        for arch in archs or ["zamba2-1.2b"]:
+            name, _, layers = arch.partition(":")
+            _train(name, int(layers) if layers else None)
     return 0
 
 
