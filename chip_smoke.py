@@ -162,7 +162,26 @@ Phases, each of which makes the script exit non-zero when it fails:
     twice), routing identical; whisper-tiny at full width and depth, B 2,
     64 tokens and 1,500 seeded frames (the non-causal kernel under
     autograd). The loss within 1e-5 relative, every gradient leaf within
-    1e-4·max|g_leaf|.
+    1e-4·max|g_leaf|;
+20. phase 18's configuration (weights, schedule and batches from the same
+    seeds) trained for 2 steps through the sharding policy: a 1x1
+    ``DeviceMesh("cuda")`` over a one-rank NCCL world on a free localhost
+    port, parameters placed by ``param_shardings`` under ``TRAIN_RULES``,
+    batches by ``batch_shardings``, the kernels reached through
+    ``local_map``. This is the mesh main-path run: losses equal to phase
+    18's steps 0-1 within 1e-6 relative (bit for bit expected: a one-rank
+    mesh moves no data), 12 flash and 76 SSD launches a step; prints ms per
+    step and peak device memory;
+21. the comm-schedule path at full width: zamba2-1.2b at d_model 2,048 cut
+    to 6 of its 38 layers (one application of the shared block), one train
+    step of 8 x 4,096 tokens traced on meta tensors on a dry (4, 2)
+    ("data", "model") mesh (8 ranks on the "fake" backend); prints its
+    collectives per kind and axis, operand MB and FLOPs per rank, the flows
+    and MB per axis, and ``plan_schedule`` on the card; then the same link
+    problem through ``OnlineAllocator(solver="waterfill")`` on the card,
+    held to the sort solver's rates at 2e-3 (tests/test_torch_allocator.py's
+    tolerance for that pair); collectives on both axes, no LM kernel
+    launched by the meta trace, at least one waterfill launch.
 
 Before its last line the script prints one JSON object describing each
 kernel, then the card's name and power limit; the last line is
@@ -609,6 +628,15 @@ def main() -> int:
                         seed=8)
     lap("19 (train step card vs CPU)")
 
+    # ---- 20. phase 18's training through the sharding policy on a 1x1
+    # mesh (the mesh main-path run) ---------------------------------------
+    meshed = phase_train_mesh(dev, trained["losses"])
+    lap("20 (training zamba2 on a mesh)")
+
+    # ---- 21. the comm-schedule path at full width ------------------------
+    comm = phase_comm_schedule(dev)
+    lap("21 (comm schedule)")
+
     main = results["datacenter"]["shared"]
     kernels = [{
         "name": "waterfill",
@@ -670,6 +698,13 @@ def main() -> int:
             "train_launches": trained["launches"][name],
             "train_launches_per_step": trained["per_step"][name],
             **{f"train_{k}": v for k, v in res["train"].items()}})
+    # phase 20's main path (counts set to 0 just before it) and phase 21's
+    # link problem through the waterfill kernel
+    for entry, name in ((kernels[1], "flash_attention"),
+                        (kernels[2], "ssd_chunk")):
+        entry["mesh_train_launches"] = meshed["launches"][name]
+    kernels[0].update({"comm_schedule_launches": comm["launches"],
+                       "comm_schedule_max_abs_err": comm["max_abs_err"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1762,6 +1797,212 @@ def phase_train_numeric(dev, arch: str, n_layers: int | None, B: int, S: int,
     check(launched[0] + launched[1] > 0,
           f"{label}: the card's step launched no LM kernel")
     torch.cuda.empty_cache()
+
+
+# ---- the mesh path (phases 20-21) ----------------------------------------
+# phase 20: phase 18's first steps again, on a 1x1 mesh; the losses against
+# phase 18's (a one-rank mesh moves no data: bit for bit expected)
+MESH_STEPS = 2
+MESH_LOSS_RTOL = 1e-6
+# phase 21: zamba2-1.2b at full width cut to one group of 6 Mamba2 layers
+# (one application of the shared attention block), traced on meta on a dry
+# (4, 2) mesh of 8 ranks at this shape cell
+COMM_LAYERS = 6
+COMM_MESH = ((4, 2), ("data", "model"))
+COMM_SPEC = ("demo", 4096, 8, "train")
+# the waterfill kernel against the sort solver on the scheduler's link
+# problem: tests/test_torch_allocator.py's tolerance for that pair
+WATERFILL_SORT_RTOL = 2e-3
+
+
+def phase_train_mesh(dev, ref_losses) -> dict:
+    """Phase 18's configuration (zamba2-1.2b at full width and depth, float32
+    weights and AdamW states, bfloat16 compute, remat on, the same seed,
+    schedule and ``SyntheticLM`` batches) trained for ``MESH_STEPS`` steps
+    through the sharding policy: a 1x1 ``DeviceMesh("cuda")`` over a
+    one-rank NCCL world, parameters placed by ``param_shardings`` under
+    ``TRAIN_RULES``, batches by ``batch_shardings``, the kernels reached
+    through ``local_map``. Checks the losses against phase 18's steps
+    (``MESH_LOSS_RTOL``), 12 flash and 76 SSD launches a step and finite
+    metrics; prints ms per step and peak memory."""
+    import math
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch import shardings as S
+    from repro_torch.launch.mesh import local_world, make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.sharding.policy import sharding_policy
+    from repro_torch.train.optim import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config("zamba2-1.2b")
+    api = get_model(cfg, device=dev)
+    opt = AdamW(lr=warmup_cosine(3e-4, warmup=2, total=TRAIN_STEPS))
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_S,
+                       global_batch=TRAIN_B, structured=True)
+    model = api.init(torch.Generator(device=dev).manual_seed(0),
+                     trainable=True)
+    tree = lm.nest({n: p.detach() for n, p in model.named_parameters()})
+    del model
+    n_apps = cfg.n_layers // cfg.hybrid_attn_every
+    want = {"flash_attention": 2 * n_apps, "ssd_chunk": 2 * cfg.n_layers}
+    losses, walls = [], []
+    with local_world("cuda"):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        with sharding_policy(mesh, S.TRAIN_RULES):
+            params = api.build(S.place_tree(tree, S.param_shardings(
+                mesh, api, S.TRAIN_RULES)), trainable=True)
+            del tree
+            check(all(isinstance(p, DTensor) for p in params.parameters()),
+                  "mesh train: every parameter a DTensor")
+            state = opt.init(params)
+            step = make_train_step(api, opt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.LAUNCHES = ssd.LAUNCHES = 0
+            for i in range(MESH_STEPS):
+                b = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                     for k, v in pipe.batch(i).items()}
+                bsh = S.batch_shardings(mesh, b)
+                b = {k: S.place(v, bsh[k]) for k, v in b.items()}
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, b)
+                loss = float(m["loss"].full_tensor())
+                walls.append(time.perf_counter() - t0)
+                losses.append(loss)
+                print(f"mesh train: step {i}: loss {loss:.6f} (phase 18: "
+                      f"{ref_losses[i]:.6f}), grad_norm "
+                      f"{float(m['grad_norm'].full_tensor()):.4f}, "
+                      f"{1e3 * walls[-1]:.1f} ms")
+            launches = {"flash_attention": fa.LAUNCHES,
+                        "ssd_chunk": ssd.LAUNCHES}
+            peak = torch.cuda.max_memory_allocated()
+        del params, state
+    torch.cuda.empty_cache()
+    worst = max(abs(a / b - 1) for a, b in zip(losses, ref_losses))
+    print(f"mesh train: zamba2-1.2b on a 1x1 DeviceMesh (NCCL, one rank), "
+          f"{MESH_STEPS} steps of {TRAIN_B} x {TRAIN_S}: "
+          f"{1e3 * walls[0]:.1f} ms for step 0 (DTensor's sharding "
+          f"propagation warms its cache), {1e3 * walls[-1]:.1f} ms for step "
+          f"{MESH_STEPS - 1}; peak device memory {peak / 2**30:.3f} GiB; "
+          f"losses {'bit for bit equal to' if losses == ref_losses[:MESH_STEPS] else 'differ from'} "
+          f"phase 18's (max relative difference {worst:.3e}); launches "
+          f"flash {launches['flash_attention']}, ssd_chunk "
+          f"{launches['ssd_chunk']} (expected {want['flash_attention']} and "
+          f"{want['ssd_chunk']} a step)")
+    check(all(math.isfinite(x) for x in losses), "mesh train: finite losses")
+    check(worst <= MESH_LOSS_RTOL,
+          f"mesh train: losses {losses} vs phase 18's {ref_losses[:2]}")
+    for name, k in want.items():
+        check(launches[name] == k * MESH_STEPS,
+              f"mesh train: {name} launches {launches[name]} != "
+              f"{k} x {MESH_STEPS}")
+    return dict(launches=launches, losses=losses, step_ms=1e3 * walls[-1],
+                first_step_ms=1e3 * walls[0], peak_gib=peak / 2**30,
+                bitwise=losses == ref_losses[:MESH_STEPS])
+
+
+def phase_comm_schedule(dev) -> dict:
+    """The comm-schedule path at full width: zamba2-1.2b (d_model 2048)
+    cut to ``COMM_LAYERS`` layers, one train step traced on meta tensors
+    on a dry ``COMM_MESH`` of the card's device type (the "fake" backend;
+    a "cuda" mesh, so DTensor issues the collectives it would issue on the
+    card, all-to-alls where a "cpu" mesh gathers), its collectives recorded
+    and turned into flows, ``plan_schedule`` on the card (sort solver);
+    then the same link problem through ``OnlineAllocator(solver=
+    "waterfill")`` on the card, held to the sort solver's rates at
+    ``WATERFILL_SORT_RTOL``. Checks collectives on both mesh axes,
+    all-to-alls among them, and no LM kernel launch (on meta the wrappers
+    are shape functions)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.allocator import OnlineAllocator
+    from repro_torch.core.scheduler import (extract_flows, flow_state,
+                                            link_problem, plan_schedule)
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.waterfill import ops as wf
+    from repro_torch.launch import comm_stats
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16, dry_world, make_mesh
+    from repro_torch.models.registry import ShapeSpec, get_config, get_model
+    from repro_torch.sharding.policy import mesh_axes
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=COMM_LAYERS)
+    api = get_model(cfg, device=dev)
+    spec = ShapeSpec(*COMM_SPEC)
+    before = (fa.LAUNCHES, ssd.LAUNCHES)
+    t0 = time.perf_counter()
+    with dry_world(int(np.prod(COMM_MESH[0]))):
+        mesh = make_mesh(*COMM_MESH, dev.type)
+        records, flops = comm_stats.trace_train_step(api, mesh, spec)
+        axes = mesh_axes(mesh)
+    trace_s = time.perf_counter() - t0
+    check((fa.LAUNCHES, ssd.LAUNCHES) == before,
+          "comm schedule: the meta trace launched an LM kernel")
+    st = comm_stats.collective_stats(records)
+    kinds = {k: v for k, v in st.items() if k not in ("total", "count")}
+    counts = {k: n for k, (n, _) in
+              comm_stats.by_axis(records, per_kind=True).items()}
+    print(f"comm schedule: zamba2-1.2b at d_model {cfg.d_model}, "
+          f"{cfg.n_layers} of 38 layers, {spec.global_batch} x "
+          f"{spec.seq_len} tokens on a dry {COMM_MESH[0]} "
+          f"{COMM_MESH[1]} mesh: {st['count']} collectives, "
+          f"{st['total'] / 1e6:.1f} MB of operands per rank, "
+          f"{flops / 1e12:.3f} TFLOP per rank; traced in {trace_s:.2f} s")
+    print(f"comm schedule: operand MB per kind "
+          f"{ {k: round(v / 1e6, 3) for k, v in kinds.items()} }; ops per "
+          f"(kind, axis) {counts}")
+    check({c.axis for c in records} >= {"data", "model"},
+          f"comm schedule: collectives on {sorted({str(c.axis) for c in records})}")
+    check("all-to-all" in kinds, "comm schedule: no all-to-all recorded on "
+          "the cuda mesh (DTensor's shard-to-shard redistribution)")
+    flows = extract_flows(records, axes)
+    per_axis = comm_stats.by_axis(flows)
+    for axis, (n, b) in per_axis.items():
+        print(f"comm schedule: axis {axis}: {n} flows, {b / 1e6:.1f} MB per "
+              f"step")
+    compute_s = flops / PEAK_FLOPS_BF16
+    t0 = time.perf_counter()
+    sched = plan_schedule(flows, axes, step_compute_s=max(compute_s, 1e-3),
+                          device=dev)
+    plan_s = time.perf_counter() - t0
+    print(f"comm schedule: compute {1e3 * compute_s:.3f} ms at the bf16 "
+          f"peak; total comm {1e3 * sched.est_total_comm_s:.3f} ms, exposed "
+          f"{1e3 * sched.est_exposed_s:.3f} ms; planned in {plan_s:.3f} s")
+    check(np.isfinite(sched.rates).all() and (sched.rates >= 0).all(),
+          "comm schedule: finite rates")
+    # the same link problem through the waterfill kernel
+    R, caps, kinds_, mb, backlog = link_problem(flows, axes)
+    dt = max(compute_s, 1e-3)
+    sort = OnlineAllocator(R, caps, kinds_, dt=dt, device=dev)
+    kern = OnlineAllocator(R, caps, kinds_, dt=dt, solver="waterfill",
+                           device=dev)
+    state = flow_state(mb, backlog, dev)
+    wf.LAUNCHES = 0
+    got = kern(state)
+    torch.cuda.synchronize()
+    launches = wf.LAUNCHES
+    want = sort(state)
+    err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+    print(f"comm schedule: {len(flows)} flows on {len(axes)} links through "
+          f"the waterfill kernel ({launches} launches): max |rate - sort| "
+          f"{err:.4e} B/s, {rel:.3e} relative")
+    check(launches > 0, "comm schedule: the waterfill kernel never ran")
+    check(torch.allclose(got, want, rtol=WATERFILL_SORT_RTOL,
+                         atol=WATERFILL_SORT_RTOL),
+          f"comm schedule: waterfill rates off the sort solver's by {rel}")
+    return dict(launches=launches, max_abs_err=err, count=st["count"],
+                per_axis=per_axis)
 
 
 # ---- the port's examples and the paper's oracles (phase 13) --------------

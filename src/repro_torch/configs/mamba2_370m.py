@@ -22,4 +22,5 @@ def config() -> ModelConfig:
         ssm_head_dim=64,
         ssm_expand=2,
         ssm_conv=4,
+        sub_quadratic=True,      # constant-state decode: long_500k runs
     )

@@ -24,4 +24,5 @@ def config() -> ModelConfig:
         ssm_expand=2,
         ssm_conv=4,
         hybrid_attn_every=6,
+        sub_quadratic=True,      # constant-state decode: long_500k runs
     )

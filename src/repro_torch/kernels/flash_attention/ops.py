@@ -25,6 +25,19 @@ float32 product, near float32; one tf32 product would round float32 inputs
 past the tolerance). Both read q, k and v through tensor maps whose plan
 (:func:`tma_plan`) the wrapper computes and checks (:func:`check_tma_operand`)
 before the library encodes it.
+
+On meta tensors the wrapper is a shape function: it returns an empty
+output of the kernel's shape and dtype, runs nothing and counts no launch.
+DTensors (a step on a ``DeviceMesh``) reach the kernel through
+``local_map`` (:mod:`repro_torch.kernels.local`), so that each rank hands
+the kernel plain local tensors: q keeps the batch and head splits its
+caller gave it, k and v follow q's batch split, and their heads follow
+q's where the caller split them over the same mesh dims and evenly. Else
+the KV heads are whole on every rank while the query heads are split; a
+rank's query heads then read only some of the KV heads, and the rank
+passes exactly those (:func:`kv_heads_for`), so that the kernel's map from
+query head h to KV head h // G holds locally; their gradients are then
+partial sums over the ranks.
 """
 from __future__ import annotations
 
@@ -33,9 +46,12 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.flash_attention.ref import attention_plain
+from repro_torch.kernels.local import as_dtensor, kept, shard_index, unsplit
 
 NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -164,12 +180,60 @@ def _check(q, k, v) -> None:
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """q: [B,S,H,hd]; k, v: [B,T,K,hd] with H = K·G -> [B,S,H,hd] in q's
     dtype. Causal means key j is seen by query i iff j <= i.
-    Differentiable (:class:`FlashAttention`) where autograd asks for it."""
+    Differentiable (:class:`FlashAttention`) where autograd asks for it.
+    DTensors go through :func:`_on_mesh`."""
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        return _on_mesh(q, k, v, causal)
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal)
     return _forward(q, k, v, causal)
+
+
+def kv_heads_for(shard: int, local_heads: int, group: int) -> tuple[int, int]:
+    """(first, count) of the KV heads that query heads ``shard·local_heads``
+    .. ``(shard+1)·local_heads - 1`` read, G = ``group`` query heads per KV
+    head. The local map h // (local_heads / count) then equals the global
+    one, h // G, less ``first``. Raises where the local heads straddle KV
+    heads unevenly (neither of ``local_heads`` and G divides the other)."""
+    if group % local_heads and local_heads % group:
+        raise ValueError(f"{local_heads} local query heads do not split "
+                         f"evenly over KV heads of {group} query heads")
+    return shard * local_heads // group, max(1, local_heads // group)
+
+
+def _on_mesh(q, k, v, causal: bool):
+    """The kernel on each rank's shard of DTensor inputs (see the module
+    docstring); returns a DTensor with q's local layout."""
+    mesh = next(t for t in (q, k, v) if isinstance(t, DTensor)).device_mesh
+    q, k, v = (as_dtensor(t, mesh) for t in (q, k, v))
+    H, K = q.shape[2], k.shape[2]
+    q_pl = kept(q.placements, (0, 2))
+    shard, n = shard_index(mesh, q_pl, 2)
+    if n > 1 and (H % n or (H // K) % (H // n) and (H // n) % (H // K)):
+        # the local query heads would straddle KV heads unevenly
+        q_pl = unsplit(q_pl, 2)
+        shard, n = 0, 1
+    heads = [m for m, p in enumerate(q_pl) if p == Shard(2)]
+    aligned = K % n == 0 and all(k.placements[m] == Shard(2) for m in heads)
+    kv_pl = q_pl if aligned else unsplit(q_pl, 2)
+    first, count = (0, K) if aligned else kv_heads_for(shard, H // n, H // K)
+    # a rank that reads only some KV heads holds a partial sum of their
+    # gradients
+    kv_grad = tuple(Partial() if m in heads and not aligned else p
+                    for m, p in enumerate(kv_pl))
+
+    def local(ql, kl, vl):
+        if count < kl.shape[2]:
+            kl, vl = kl[:, :, first:first + count], vl[:, :, first:first + count]
+        return flash_attention(ql.contiguous(), kl.contiguous(),
+                               vl.contiguous(), causal)
+
+    return local_map(local, out_placements=list(q_pl),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 def _plain(q, k, v, causal: bool) -> torch.Tensor:
@@ -203,12 +267,15 @@ class FlashAttention(torch.autograd.Function):
 
 
 def _forward(q, k, v, causal: bool) -> torch.Tensor:
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    """The kernel on CUDA tensors, the plain version on CPU tensors, an
+    empty output on meta tensors."""
     global LAUNCHES
     if q.device.type == "cpu":
         return _plain(q, k, v, causal)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+        raise ValueError(f"flash_attention runs on cpu, cuda or meta, not "
                          f"{q.device}")
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]

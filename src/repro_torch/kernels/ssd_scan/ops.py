@@ -15,6 +15,16 @@ on the CPU) and whose backward is the vector-Jacobian product of
 has no backward kernel either. A call that needs no gradient (serving,
 under ``torch.no_grad``) runs the forward alone. The rest of
 :func:`ssd_scan` is PyTorch ops, which autograd differentiates itself.
+
+On meta tensors :func:`ssd_chunk` is a shape function: empty outputs of
+the kernel's shapes and dtypes, nothing run, no launch counted. DTensors
+(a step on a ``DeviceMesh``) enter at :func:`ssd_scan`, which runs whole
+on each rank's shard through ``local_map`` (:mod:`repro_torch.kernels.local`):
+x keeps the batch and head splits its caller gave it, and dt, A, B and C
+follow x's. B and C are shared by the heads of a batch row, so every rank
+holds them whole; the kernel then infers the local head count H = BH / Bsz
+from its own shard, and the gradients of B and C are partial sums over the
+ranks that split the heads.
 """
 from __future__ import annotations
 
@@ -23,8 +33,11 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.build import load
+from repro_torch.kernels.local import as_dtensor, kept, shard_index, unsplit
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_plain
 
 NAME = "ssd_chunk"
@@ -164,18 +177,20 @@ class SsdChunk(torch.autograd.Function):
 
 
 def _forward(x, dt, B, C, A):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    """The kernel on CUDA tensors, the plain version on CPU tensors, empty
+    outputs on meta tensors."""
     global LAUNCHES
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, B, C, A)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunk runs on cpu or cuda, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_chunk runs on cpu, cuda or meta, not "
+                         f"{x.device}")
     BH, nc, Q, P = x.shape
     Bsz, N = B.shape[0], B.shape[3]
     y = torch.empty_like(x)
     st = torch.empty((BH, nc, P, N), dtype=torch.float32, device=x.device)
     cum = torch.empty_like(dt)
-    if x.numel() == 0:
+    if x.numel() == 0 or x.device.type == "meta":
         return y, st, cum
     H = BH // Bsz
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -194,9 +209,36 @@ def _forward(x, dt, B, C, A):
     return y, st, cum
 
 
+def _on_mesh(x, dt, A, B, C, chunk: int):
+    """:func:`ssd_scan` on each rank's shard of DTensor inputs (see the
+    module docstring); returns DTensors."""
+    mesh = next(t for t in (x, dt, A, B, C)
+                if isinstance(t, DTensor)).device_mesh
+    x, dt, A, B, C = (as_dtensor(t, mesh) for t in (x, dt, A, B, C))
+    x_pl = kept(x.placements, (0, 2))
+    if x.shape[2] % shard_index(mesh, x_pl, 2)[1]:
+        x_pl = unsplit(x_pl, 2)
+    # dt [B,S,H] splits as x [B,S,H,P]; A [H] by heads, B/C [B,S,N] by
+    # batch, the final state [B,H,P,N] by batch and heads
+    a_pl = tuple(Shard(0) if p == Shard(2) else Replicate() for p in x_pl)
+    bc_pl = unsplit(x_pl, 2)
+    h_pl = tuple(Shard(1) if p == Shard(2) else p for p in x_pl)
+    # a rank that holds some of the heads holds a partial sum of B's and
+    # C's gradients
+    bc_grad = tuple(Partial() if p == Shard(2) else p for p in x_pl)
+    return local_map(
+        lambda *t: ssd_scan(*t, chunk=chunk), out_placements=(x_pl, h_pl),
+        in_placements=(x_pl, x_pl, a_pl, bc_pl, bc_pl),
+        in_grad_placements=(x_pl, x_pl, a_pl, bc_grad, bc_grad),
+        device_mesh=mesh, redistribute_inputs=True)(x, dt, A, B, C)
+
+
 def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     """Full SSD: x [B,S,H,P], dt [B,S,H], A [H], B/C [B,S,N]. Returns
-    (y [B,S,H,P], final_state [B,H,P,N]), float32."""
+    (y [B,S,H,P], final_state [B,H,P,N]), float32. DTensors go through
+    :func:`_on_mesh`."""
+    if any(isinstance(t, DTensor) for t in (x, dt, A, B, C)):
+        return _on_mesh(x, dt, A, B, C, chunk)
     Bsz, S, H, P = x.shape
     N = B.shape[-1]
     chunk = min(chunk, S)

@@ -14,10 +14,12 @@ Three entry points share the kernel:
 
 Tensors on the CPU go through the plain version
 (:func:`repro_torch.kernels.waterfill.ref.waterfill_plain`); CUDA tensors
-launch the kernel on the current stream, without synchronising, or raise.
-The JAX kernel's ``block_links``/``block_flows`` tiling knobs and its
-padding to 128 lanes are TPU layout concerns with no counterpart here: the
-CUDA kernel runs one block per link and masks its own ragged flow edge.
+launch the kernel on the current stream, without synchronising, or raise;
+meta tensors get an empty [L, F] output of the kernel's shape (a shape
+function: nothing runs, no launch is counted). The JAX kernel's
+``block_links``/``block_flows`` tiling knobs and its padding to 128 lanes
+are TPU layout concerns with no counterpart here: the CUDA kernel runs one
+block per link and masks its own ragged flow edge.
 
 The kernel lists each link's masked flows in shared memory, at most
 :data:`LIST_BUDGET` of them; a row with more walks its row in device memory
@@ -149,11 +151,12 @@ def _solve(weights, backlog, rho, mask, capacity, kind, dt, flow_stride,
                 kind.reshape(Bn, links_per_group), dt).reshape(-1, F)
         return waterfill_plain(weights, backlog, rho, mask, capacity, kind,
                                dt)
-    if mask.device.type != "cuda":
-        raise ValueError(f"waterfill runs on cpu or cuda, not {mask.device}")
+    if mask.device.type not in ("cuda", "meta"):
+        raise ValueError(f"waterfill runs on cpu, cuda or meta, not "
+                         f"{mask.device}")
     L, F = mask.shape
     out = torch.empty((L, F), dtype=torch.float32, device=mask.device)
-    if L == 0 or F == 0:
+    if L == 0 or F == 0 or mask.device.type == "meta":
         return out
     plan = launch_plan(L, F, flow_stride, links_per_group)
     lib = _lib()

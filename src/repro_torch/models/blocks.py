@@ -25,14 +25,19 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.local import shard_index
+from repro_torch.sharding.policy import placements_on, shard_as, shard_count
 
 NEG_INF = -1e30
 
@@ -88,6 +93,28 @@ def count_specs(specs) -> int:
     return sum(math.prod(s.shape) for s in _leaves(specs))
 
 
+def map_specs(fn, specs) -> Any:
+    """The tree of ``specs`` (nested dicts and lists) with each
+    :class:`ParamSpec` ``s`` replaced by ``fn(s)``."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [map_specs(fn, v) for v in specs]
+    return fn(specs)
+
+
+def spec_axes(specs) -> Any:
+    """Same-structure tree of logical-axes tuples."""
+    return map_specs(lambda s: s.axes, specs)
+
+
+def abstract_params(specs) -> Any:
+    """Same-structure tree of float32 meta tensors: shapes without
+    storage (the JAX package's ``ShapeDtypeStruct``s)."""
+    return map_specs(lambda s: torch.empty(s.shape, dtype=torch.float32,
+                                           device="meta"), specs)
+
+
 # --------------------------------------------------------------------------
 # norms & activations
 # --------------------------------------------------------------------------
@@ -104,6 +131,45 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
     return ((x - mu) * torch.rsqrt(var + eps) * weight + bias).to(dt)
+
+
+class _GradInLayout(torch.autograd.Function):
+    """The identity; the gradient comes back in the input's placements."""
+
+    @staticmethod
+    def forward(ctx, w):
+        ctx.placements = w.placements
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(placements=ctx.placements)
+
+
+def tied(w):
+    """A weight read in more than one way (a tied embedding: its rows and
+    its transpose). On a mesh each read's gradient is brought back to the
+    weight's own placements, so that autograd sums like with like: the
+    embedding's and the unembedding's come out partial over different mesh
+    dims, and DTensor (torch 2.11) cannot add those. ``w`` itself
+    otherwise."""
+    return _GradInLayout.apply(w) if isinstance(w, DTensor) else w
+
+
+def embed_rows(w, tokens, dtype):
+    """``w.to(dtype)[tokens]``, the rows of an embedding table gathered
+    from the table cast to ``dtype``, so that the table's gradient is a
+    ``dtype`` gradient as in the JAX package. Through ``F.embedding``: on a
+    mesh DTensor shards its backward (that of indexing, ``index_put``, it
+    does not in torch 2.11), and a meshed and an unmeshed step take the
+    same backward. Rows of a vocab-sharded DTensor table come back as a
+    masked partial sum, which is reduced at once (its mask serves one
+    reduction only)."""
+    out = F.embedding(tokens, w.to(dtype))
+    if not isinstance(out, DTensor):
+        return out
+    return out.redistribute(placements=[
+        Replicate() if p.is_partial() else p for p in out.placements])
 
 
 def silu(x):
@@ -197,7 +263,11 @@ def gqa_attend(q, k, v, mask):
     q = q.reshape(B, S, K, G, hd)
     scale = 1.0 / math.sqrt(hd)
     scores = torch.einsum("bskgd,btkd->bkgst", q, k) * scale  # [B,K,G,S,T]
-    scores = torch.where(mask, scores.float(), NEG_INF)
+    # sharding fallback for head counts not divisible by the model axis:
+    # shard the query-sequence dim of the score tensor instead
+    scores = shard_as(scores.float(), "batch", "kv_heads", None, "act_seq",
+                      None)
+    scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(B, S, H, hd)
@@ -270,13 +340,17 @@ def attention(p, x, cfg, positions, mask=None):
     instead). Returns (out, (k, v))."""
     q, k, v = qkv_proj(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.rope_theta,
                        positions)
+    q = shard_as(q, "batch", "seq", "heads", None)
+    k = shard_as(k, "batch", "seq", "kv_heads", None)
+    v = shard_as(v, "batch", "seq", "kv_heads", None)
     S = x.shape[1]
     if mask is None:
         mask = (causal_mask(S, S, device=x.device) if cfg.causal else
                 torch.ones((1, 1, 1, S, S), dtype=torch.bool,
                            device=x.device))
     out = gqa_attend(q, k, v, mask)
-    return out_proj(out, p["wo"]), (k, v)
+    out = shard_as(out_proj(out, p["wo"]), "batch", "seq", "embed_act")
+    return out, (k, v)
 
 
 def attention_decode(p, x, cfg, cache_k, cache_v, pos: int):
@@ -291,6 +365,8 @@ def attention_decode(p, x, cfg, cache_k, cache_v, pos: int):
     slot = pos % T
     cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    cache_k = shard_as(cache_k, "batch", "kv_seq", "kv_heads", None)
+    cache_v = shard_as(cache_v, "batch", "kv_seq", "kv_heads", None)
     valid = (torch.arange(T, device=x.device) <= pos)[None, None, None, None]
     out = gqa_attend(q, cache_k, cache_v, valid)
     return out_proj(out, p["wo"]), (cache_k, cache_v)
@@ -345,9 +421,11 @@ def mlp(p, x, act: str = "swiglu"):
     dt = x.dtype
     if act == "swiglu":
         h = silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        h = shard_as(h, "batch", "seq", "mlp")
         return h @ p["w_down"].to(dt)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p["w_in"].to(dt) + p["b_in"].to(dt), approximate="tanh")
+    h = shard_as(h, "batch", "seq", "mlp")
     return h @ p["w_out"].to(dt) + p["b_out"].to(dt)
 
 
@@ -377,7 +455,8 @@ def record_routes():
     routing to the list this yields (tensors, left on the input's device):
     ``top_idx`` [T,K], ``probs`` the top K+1 router probabilities [T,K+1]
     (descending), ``dropped`` the number of (token, k) slots past their
-    expert's capacity, and ``tokens`` T."""
+    expert's capacity, ``kept`` [T,K] which slots fit, and ``tokens`` T.
+    Calls on a mesh (DTensors) record nothing."""
     global ROUTES
     prev, ROUTES = ROUTES, []
     try:
@@ -386,90 +465,151 @@ def record_routes():
         ROUTES = prev
 
 
-def moe_ffn(p, x, n_experts: int, top_k: int, capacity_factor: float = 1.25):
-    """Token-choice top-k MoE with sort-based capacity dispatch.
-
-    The JAX package splits the tokens into G groups, one per shard of the
-    batch axis; outside a mesh (the port has none yet) ``shard_count
-    ("batch")`` is 1, so here G = 1 and the token dim is not split.
-
-    Per-expert capacity C = max(ceil(top_k·T/E · cap_factor), top_k);
-    overflow slots are dropped for that expert (Switch/GShard semantics).
-    Every expert runs over its C buffer rows, used or not, as in the JAX
-    package. Returns (out, aux_loss).
-    """
-    dt = x.dtype
-    B, S, D = x.shape
-    T = B * S
-    E, K = n_experts, top_k
-    C = max(int(math.ceil(K * T / E * capacity_factor)), K)
-    dev = x.device
-
-    xf = x.reshape(T, D)
-    logits = (xf @ p["router"].to(dt)).float()                   # [T,E]
-    probs = torch.softmax(logits, dim=-1)
+def _moe_route(probs, xf, K: int, C: int):
+    """The index steps of :func:`moe_ffn`, batched over the G groups of the
+    leading dim. probs [G,Tl,E] f32, xf [G,Tl,D] -> (xe [G,E,C,D] the
+    gathered tokens (zero in unused buffer rows), src_gate [G,E,C] f32,
+    row_of_slot [G,Tl·K] each (token, k) slot's buffer row (E·C when
+    dropped), counts [G,E] the slots routed to each expert, top_idx
+    [G,Tl,K], top probabilities [G,Tl,K+1])."""
+    G, Tl, E = probs.shape
+    D = xf.shape[-1]
+    dev = probs.device
     # stable descending sort: on equal probabilities the lower expert comes
     # first, as jax.lax.top_k returns it (torch.topk promises no order)
     sorted_p, sorted_idx = torch.sort(probs, dim=-1, descending=True,
                                       stable=True)
-    top_p, top_idx = sorted_p[:, :K], sorted_idx[:, :K]
+    top_p, top_idx = sorted_p[..., :K], sorted_idx[..., :K]
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
-    # ---- sort (token, k)-slots by expert id ----------------------------
-    expert_flat = top_idx.reshape(T * K)
-    order = torch.argsort(expert_flat, stable=True)              # [T*K]
+    # ---- sort (token, k)-slots by expert id, per group -----------------
+    expert_flat = top_idx.reshape(G, Tl * K)
+    order = torch.argsort(expert_flat, dim=-1, stable=True)     # [G,Tl*K]
     tok_sorted = order // K
-    exp_sorted = expert_flat[order]
-    gate_sorted = top_p.reshape(T * K)[order]
+    exp_sorted = torch.gather(expert_flat, 1, order)
+    gate_sorted = torch.gather(top_p.reshape(G, Tl * K), 1, order)
     # position of each slot within its expert's run
-    seg_start = torch.searchsorted(exp_sorted,
-                                   torch.arange(E, device=dev), side="left")
-    pos_in_e = torch.arange(T * K, device=dev) - seg_start[exp_sorted]
+    seg_start = torch.searchsorted(
+        exp_sorted, torch.arange(E, device=dev).expand(G, E).contiguous(),
+        side="left")
+    pos_in_e = (torch.arange(Tl * K, device=dev)
+                - torch.gather(seg_start, 1, exp_sorted))
     keep = pos_in_e < C                                          # capacity
 
-    # ---- gather tokens to [E, C, D] ------------------------------------
+    # ---- gather tokens to [G, E, C, D] ----------------------------------
     # row E*C is the trash row: every dropped slot writes there (torch does
     # not say which write wins), and it is sliced off
     slot = torch.where(keep, exp_sorted * C + pos_in_e, E * C)
 
     def fill(val, dtype):
-        buf = torch.zeros(E * C + 1, dtype=dtype, device=dev)
-        return buf.scatter_(0, slot, val.to(dtype))[:E * C].reshape(E, C)
+        buf = torch.zeros((G, E * C + 1), dtype=dtype, device=dev)
+        return buf.scatter(1, slot, val.to(dtype))[:, :E * C]
 
     src_tok = fill(tok_sorted, torch.long)
     src_gate = fill(torch.where(keep, gate_sorted, 0.0), torch.float32)
     src_valid = fill(keep, torch.float32)
+    xe = torch.gather(xf, 1, src_tok[..., None].expand(G, E * C, D))
+    xe = (xe * src_valid[..., None].to(xf.dtype)).reshape(G, E, C, D)
+    row_of_slot = torch.empty_like(slot).scatter_(1, order, slot)
+    # integer counts: exact in any order of the adds
+    counts = torch.zeros((G, E), dtype=torch.long, device=dev).scatter_add_(
+        1, expert_flat, torch.ones_like(expert_flat))
+    return (xe, src_gate.reshape(G, E, C), row_of_slot, counts, top_idx,
+            sorted_p[..., :K + 1])
 
-    xe = xf[src_tok.reshape(E * C)].reshape(E, C, D)
-    xe = xe * src_valid[..., None].to(dt)
 
-    # ---- expert FFN -----------------------------------------------------
-    h = silu(torch.bmm(xe, p["w_gate"].to(dt)))
-    h = h * torch.bmm(xe, p["w_up"].to(dt))
+def _moe_combine(out_e, row_of_slot, e_first: int, K: int):
+    """out_e [G,El,C,D], the buffer rows of experts e_first.. e_first+El-1
+    -> [G,Tl,D]: each (token, k) slot reads its buffer row (a zero row when
+    it was dropped or its expert is not among these), and the K rows are
+    summed in k order in out_e's dtype; no scatter-add, so the bits do not
+    depend on the order of atomics."""
+    G, El, C, D = out_e.shape
+    rows = torch.cat([out_e.reshape(G, El * C, D),
+                      torch.zeros((G, 1, D), dtype=out_e.dtype,
+                                  device=out_e.device)], dim=1)
+    local = row_of_slot - e_first * C
+    local = torch.where((local >= 0) & (local < El * C), local, El * C)
+    picked = torch.gather(rows, 1, local[..., None].expand(*local.shape, D))
+    picked = picked.reshape(G, -1, K, D)
+    out = picked[:, :, 0]
+    for k in range(1, K):
+        out = out + picked[:, :, k]
+    return out
+
+
+def moe_ffn(p, x, n_experts: int, top_k: int, capacity_factor: float = 1.25):
+    """Token-choice top-k MoE with shard-local sort-based capacity dispatch.
+
+    As in the JAX package, the token dim is split into G groups, one per
+    shard of the active policy's batch axis (G = 1 outside a mesh, or when
+    the tokens do not split evenly), and every index step (sort, gather,
+    combine) runs per group, so dispatch never moves tokens across the
+    batch axis. Each group has its own capacity C = max(ceil(top_k·T/G/E ·
+    cap_factor), top_k); overflow slots are dropped for that expert
+    (Switch/GShard semantics). Every expert runs over its C buffer rows per
+    group, used or not, as in the JAX package. Returns (out, aux_loss).
+
+    On a mesh (DTensor inputs) the routing runs on each rank's groups and
+    the combine on each rank's experts through ``local_map``; the expert
+    FFN is DTensor matmuls with the experts sharded (EP).
+    """
+    dt = x.dtype
+    B, S, D = x.shape
+    T = B * S
+    E, K = n_experts, top_k
+    G = shard_count("batch")
+    if T % G:
+        G = 1
+    Tl = T // G
+    C = max(int(math.ceil(K * Tl / E * capacity_factor)), K)
+
+    xf = shard_as(x.reshape(G, Tl, D), "batch", None, "embed_act")
+    logits = (xf @ p["router"].to(dt)).float()                  # [G,Tl,E]
+    probs = torch.softmax(logits, dim=-1)
+    mesh = xf.device_mesh if isinstance(xf, DTensor) else None
+
+    route = functools.partial(_moe_route, K=K, C=C)
+    combine = functools.partial(_moe_combine, K=K, e_first=0)
+    if mesh is not None:
+        rows = placements_on(mesh, probs.shape, "batch", None, None)
+        route = local_map(route, out_placements=(rows,) * 6,
+                          in_placements=(rows, rows), device_mesh=mesh,
+                          redistribute_inputs=True)
+        # a rank combines its own experts' rows: a partial sum over the
+        # ranks that split the experts
+        ex = placements_on(mesh, (G, E, C, D), "batch", "experts", None,
+                           None)
+        shard, n = shard_index(mesh, ex, 1)
+        combine = local_map(
+            functools.partial(_moe_combine, K=K, e_first=shard * E // n),
+            out_placements=[Partial() if q == Shard(1) else q for q in ex],
+            in_placements=(ex, rows), device_mesh=mesh,
+            redistribute_inputs=True)
+    xe, src_gate, row_of_slot, counts, top_idx, top_probs = route(probs, xf)
+    xe = shard_as(xe, "batch", "experts", None, "embed_act")
+
+    # ---- expert FFN (EP: experts sharded, contraction local) -----------
+    # the groups' buffers side by side: [E, G*C, D] against [E, D, F]
+    xg = xe.permute(1, 0, 2, 3).reshape(E, G * C, D)
+    h = silu(torch.bmm(xg, p["w_gate"].to(dt)))
+    h = h * torch.bmm(xg, p["w_up"].to(dt))
     out_e = torch.bmm(h, p["w_down"].to(dt))
+    out_e = out_e.reshape(E, G, C, D).permute(1, 0, 2, 3)
     out_e = out_e * src_gate[..., None].to(dt)
 
-    # ---- combine: each (token, k) slot reads its buffer row ------------
-    # (the zero row E*C for a dropped slot) and the K rows are summed in
-    # k order, in x.dtype; no scatter-add, so the bits do not depend on
-    # the order of atomics
-    row_of_slot = torch.empty(T * K, dtype=torch.long, device=dev)
-    row_of_slot[order] = slot
-    rows = torch.cat([out_e.reshape(E * C, D),
-                      torch.zeros(1, D, dtype=dt, device=dev)])
-    picked = rows[row_of_slot].reshape(T, K, D)
-    out = picked[:, 0]
-    for k in range(1, K):
-        out = out + picked[:, k]
-    out = out.reshape(B, S, D)
+    out = combine(out_e, row_of_slot).reshape(B, S, D)
+    out = shard_as(out, "batch", "act_seq", "embed_act")
 
     # load-balancing aux loss (Switch-style, global mean)
-    me = probs.mean(dim=0)                                       # [E]
-    ce = torch.bincount(expert_flat, minlength=E).float() / T
+    me = probs.mean(dim=(0, 1))                                  # [E]
+    ce = counts.sum(0).float() / T
     aux = E * torch.sum(me * ce / K)
-    if ROUTES is not None:
-        ROUTES.append(dict(top_idx=top_idx, probs=sorted_p[:, :K + 1],
-                           dropped=(~keep).sum(), tokens=T))
+    if ROUTES is not None and mesh is None:
+        kept = (row_of_slot < E * C).reshape(T, K)
+        ROUTES.append(dict(top_idx=top_idx.reshape(T, K),
+                           probs=top_probs.reshape(T, -1),
+                           dropped=(~kept).sum(), tokens=T, kept=kept))
     return out, aux.float()
 
 
@@ -502,9 +642,12 @@ def _ssd_dims(cfg):
 
 
 def causal_conv1d(x, w, b):
-    """Depthwise causal conv. x: [B,S,C], w: [k,C]."""
+    """Depthwise causal conv. x: [B,S,C], w: [k,C]. The k-1 zero rows in
+    front are concatenated, not padded: DTensor's pad (torch 2.11) returns
+    a placement for one mesh dim on a 2-D mesh."""
     k = w.shape[0]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    zeros = torch.zeros_like(x[:, :1]).expand(-1, k - 1, -1)
+    xp = torch.cat([zeros, x], dim=1)
     out = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
               for i in range(k))
     return out + b[None, None, :]
@@ -529,6 +672,7 @@ def mamba2_forward(p, x, cfg, chunk: int = 128, return_state: bool = False):
     xbc_pre = xbc
     xbc = silu(causal_conv1d(xbc, p["conv_w"].to(dt_), p["conv_b"].to(dt_)))
     xs, B_, C_ = torch.tensor_split(xbc, [d_inner, d_inner + N], dim=-1)
+    xs = shard_as(xs, "batch", "seq", "inner")
 
     xs = xs.reshape(B, S, H, P_).float()
     dt = softplus(dt_raw.float() + p["dt_bias"].float())          # [B,S,H]

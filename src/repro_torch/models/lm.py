@@ -54,6 +54,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import blocks as B
 from repro_torch.models.blocks import ParamSpec
+from repro_torch.sharding import policy
+from repro_torch.sharding.policy import shard_as
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 # norm weight dicts (whisper's too)
@@ -99,6 +101,7 @@ class ModelConfig:
     # execution
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
+    sub_quadratic: bool = False  # supports 500k-token decode
 
     @property
     def hd(self) -> int:
@@ -151,9 +154,16 @@ def _norm_specs(cfg, d=None):
 
 
 def _apply_norm(cfg, p, x):
+    """The normed activations, which go on to projections. Under a policy
+    that shards the residual stream's sequence ("act_seq": sequence
+    parallelism) they are gathered along it here, as before a
+    column-parallel matmul: DTensor (torch 2.11) cannot flatten a batch
+    and a sequence dim that are both sharded, which a 3-D matmul does."""
     if cfg.norm == "layernorm":
-        return B.layer_norm(x, p["w"], p["b"])
-    return B.rms_norm(x, p["w"])
+        y = B.layer_norm(x, p["w"], p["b"])
+    else:
+        y = B.rms_norm(x, p["w"])
+    return shard_as(y, "batch", "seq", "embed_act")
 
 
 def _attn_specs(cfg):
@@ -217,6 +227,14 @@ def model_specs(cfg) -> dict:
         s["vis_proj"] = ParamSpec((cfg.d_model, cfg.d_model),
                                   ("embed", "embed_act"), "small")
     return s
+
+
+def abstract_params(cfg):
+    return B.abstract_params(model_specs(cfg))
+
+
+def param_axes(cfg):
+    return B.spec_axes(model_specs(cfg))
 
 
 # --------------------------------------------------------------------------
@@ -362,8 +380,10 @@ def _attn_block(cfg, p, x, positions):
     q, k, v = B.qkv_proj(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
                          cfg.rope_theta, positions)
     q, k = _maybe_qk_norm(cfg, p["attn"], q, k)
+    q = shard_as(q, "batch", "seq", "heads", None)
     o = flash_attention(q, k, v, causal=cfg.causal)
-    return x + B.out_proj(o, p["attn"]["wo"]), (k, v)
+    o = B.out_proj(o, p["attn"]["wo"])
+    return x + shard_as(o, "batch", "act_seq", "embed_act"), (k, v)
 
 
 def _attn_block_decode(cfg, p, x, cache_k, cache_v, pos: int):
@@ -391,7 +411,7 @@ def _ffn_block(cfg, p, x):
                            cfg.capacity_factor)
     else:
         o, aux = B.mlp(p["mlp"], h, cfg.act), None
-    return x + o, aux
+    return x + shard_as(o, "batch", "act_seq", "embed_act"), aux
 
 
 def dense_layer(cfg, p, x, positions):
@@ -404,7 +424,7 @@ def dense_layer(cfg, p, x, positions):
 def ssm_layer(cfg, p, x):
     h = _apply_norm(cfg, p["norm"], x)
     o, _ = B.mamba2_forward(p["mamba"], h, cfg, chunk=cfg.ssd_chunk)
-    return x + o
+    return x + shard_as(o, "batch", "act_seq", "embed_act")
 
 
 def ssm_layer_prefill(cfg, p, x):
@@ -427,33 +447,34 @@ def ssm_layer_decode(cfg, p, x, conv_state, ssm_state):
 def _embed(cfg, params, tokens, vis_embeds=None):
     """Token embeddings [B,S,D]; for vlm the projected patch embeddings
     [B,n_vis,D] come first: [B,n_vis+S,D]."""
-    x = params.embed.to(cfg.dtype)[tokens]
+    x = B.embed_rows(B.tied(params.embed), tokens, cfg.dtype)
     if cfg.family == "vlm":
         if vis_embeds is None:
             raise ValueError("vlm needs patch embeddings (vis_embeds)")
         v = vis_embeds.to(cfg.dtype) @ params.vis_proj.to(cfg.dtype)
         x = torch.cat([v, x], dim=1)
-    return x
+    return shard_as(x, "batch", "act_seq", "embed_act")
 
 
 def unembed_matrix(cfg, params):
     """[D, V] output projection (tied or untied), in ``cfg.dtype``."""
-    w = params.embed.T if cfg.tie_embeddings else params.unembed
+    w = B.tied(params.embed).T if cfg.tie_embeddings else params.unembed
     return w.to(cfg.dtype)
 
 
 def _logits(cfg, params, x):
     x = _apply_norm(cfg, params.final_norm, x)
-    return x @ unembed_matrix(cfg, params)
+    return shard_as(x @ unembed_matrix(cfg, params), "batch", "seq", "vocab")
 
 
 def remat(cfg, fn, x, *args):
     """``fn(x, *args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``
     is set and autograd records ``x``: only the inputs are kept, and the
     backward runs ``fn`` again (its kernels too). The model draws no random
-    numbers, so no RNG state is stashed."""
+    numbers, so no RNG state is stashed. The recompute runs under the
+    sharding policy of the forward (``policy.bound``)."""
     if cfg.remat and torch.is_grad_enabled() and x.requires_grad:
-        return checkpoint(fn, x, *args, use_reentrant=False,
+        return checkpoint(policy.bound(fn), x, *args, use_reentrant=False,
                           preserve_rng_state=False)
     return fn(x, *args)
 
@@ -585,7 +606,7 @@ def decode_step(cfg, params: LM, cache: dict, tokens, pos):
     counting a vlm's patch prefix). Returns (logits [B,1,V], cache), the
     cache updated in place."""
     pos = int(pos)
-    x = params.embed.to(cfg.dtype)[tokens]
+    x = B.embed_rows(params.embed, tokens, cfg.dtype)
 
     def run_ssm(layers, c):
         nonlocal x

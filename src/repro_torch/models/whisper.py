@@ -31,6 +31,7 @@ from torch import nn
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import blocks as B
 from repro_torch.models.blocks import ParamSpec
+from repro_torch.sharding.policy import shard_as
 from repro_torch.models.lm import (DenseLayer, _apply_norm, _Layer,
                                    _norm_specs, _param, _param_dict,
                                    leaf_dtype, remat)
@@ -75,6 +76,14 @@ def model_specs(cfg) -> dict:
         "dec_layers": [_dec_layer_specs(cfg)] * cfg.n_layers,
         "final_norm": _norm_specs(cfg),
     }
+
+
+def abstract_params(cfg):
+    return B.abstract_params(model_specs(cfg))
+
+
+def param_axes(cfg):
+    return B.spec_axes(model_specs(cfg))
 
 
 class DecoderLayer(_Layer):
@@ -140,6 +149,7 @@ def encode(cfg, params: Whisper, frames):
     dt = cfg.dtype
     x = frames.to(dt) @ params.frame_proj.to(dt)
     x = x + sinusoid_pos(x.shape[1], cfg.d_model, device=x.device).to(dt)[None]
+    x = shard_as(x, "batch", "act_seq", "embed_act")
     for p in params.enc_layers:
         x = remat(cfg, functools.partial(_enc_layer, cfg, p), x)
     return _apply_norm(cfg, params.enc_norm, x)
@@ -159,19 +169,19 @@ def _dec_layer(cfg, p, x, enc_out):
 
 def _embed(cfg, params, tokens, offset: int = 0):
     dt = cfg.dtype
-    y = params.embed.to(dt)[tokens]
+    y = B.embed_rows(B.tied(params.embed), tokens, dt)
     return y + sinusoid_pos(y.shape[1], cfg.d_model, offset,
                             device=y.device).to(dt)[None]
 
 
 def unembed_matrix(cfg, params):
     """[D, V]: the tied embedding, in ``cfg.dtype``."""
-    return params.embed.to(cfg.dtype).T
+    return B.tied(params.embed).to(cfg.dtype).T
 
 
 def _logits(cfg, params, y):
     y = _apply_norm(cfg, params.final_norm, y)
-    return y @ unembed_matrix(cfg, params)
+    return shard_as(y @ unembed_matrix(cfg, params), "batch", "seq", "vocab")
 
 
 def _dec_remat(cfg, p, y, enc_out):
@@ -185,7 +195,8 @@ def forward(cfg, params: Whisper, tokens, frames,
     [B,St,D], None) instead. Differentiable; under ``torch.no_grad`` it
     builds no graph and no checkpoint."""
     enc_out = encode(cfg, params, frames)
-    y = _embed(cfg, params, tokens)
+    y = shard_as(_embed(cfg, params, tokens), "batch", "act_seq",
+                 "embed_act")
     for p in params.dec_layers:
         y = remat(cfg, functools.partial(_dec_remat, cfg, p), y, enc_out)
     if return_hidden:

@@ -448,11 +448,14 @@ def fat_tree(
 def tpu_pod_fabric(
     n_pods: int,
     chips_per_pod: int,
-    ici_gbps: float = 50.0,
-    dcn_gbps: float = 6.25,
+    *,
+    ici_gbps: float,
+    dcn_gbps: float,
 ) -> Topology:
     """Abstract TPU fabric for the collective-flow scheduler: each chip's ICI
-    injection modeled as its up/down link; pods joined by DCN 'cores'.
+    injection modeled as its up/down link; pods joined by DCN 'cores'. The
+    caller gives both rates (the JAX package defaults them to a TPU's; the
+    port holds no TPU numbers).
 
     This reuses the paper's fat-tree abstraction: chip<->pod-fabric links are
     up/down links; pod<->DCN links are internal. Capacities in GB/s treated as

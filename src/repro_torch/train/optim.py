@@ -21,6 +21,7 @@ from typing import Callable, Mapping, NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models.lm import rebuild
 
@@ -86,10 +87,17 @@ class AdamW:
         return self.lr(step) if callable(self.lr) else _f32(self.lr, step)
 
     def init(self, params) -> AdamState:
+        """Zero moments like the parameters (DTensors for parameters on a
+        mesh, with their placements) and step 0 (replicated on a mesh)."""
         p = named(params)
         first = next(iter(p.values()))
+        step = torch.zeros((), dtype=torch.int32, device=first.device)
+        if isinstance(first, DTensor):
+            step = DTensor.from_local(step, first.device_mesh,
+                                      [Replicate()] * first.device_mesh.ndim,
+                                      run_check=False)
         return AdamState(
-            step=torch.zeros((), dtype=torch.int32, device=first.device),
+            step=step,
             m={n: torch.zeros_like(t) for n, t in p.items()},
             v={n: torch.zeros_like(t) for n, t in p.items()})
 

@@ -6,13 +6,22 @@ over the model's parameters (nothing is left in ``.grad``), and its
 ``jax.checkpoint`` inside the chunked loss ``torch.utils.checkpoint``. The
 knobs that only steer XLA or the sharding (``loss_unroll``,
 ``constrain_grads``) have no counterpart.
+
+A model whose parameters are DTensors (placed on a ``DeviceMesh`` by
+``launch.shardings.param_shardings``) trains the same way, its batch placed
+by ``batch_shardings``, under the ``sharding_policy`` of that mesh (where
+plain tensors, such as the optimizer's scalars, count as replicated); the
+loss and the metrics come back replicated.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.registry import ModelApi
+from repro_torch.sharding import policy
+from repro_torch.sharding.policy import shard_as
 from repro_torch.train import optim as O
 
 
@@ -21,8 +30,14 @@ def _nll(logits, labels, z_loss: float):
     positions that carry a label (labels < 0 are masked)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None]
-                      .long())[..., 0]
+    labels_ = torch.clamp(labels, min=0).long()
+    if isinstance(logits, DTensor):
+        # the label's logit as a masked sum over the vocab, which a mesh
+        # may shard (DTensor's gather from a sharded dim needs real data)
+        vocab = torch.arange(logits.shape[-1], device=labels_.device)
+        ll = torch.where(vocab == labels_[..., None], logits, 0.0).sum(-1)
+    else:
+        ll = torch.gather(logits, -1, labels_[..., None])[..., 0]
     nll = lse - ll
     if z_loss:
         nll = nll + z_loss * torch.square(lse)
@@ -36,7 +51,8 @@ def softmax_xent(logits, labels, z_loss: float = 0.0):
 
 
 def _chunk_loss(h_c, w_unembed, y_c, z_loss: float):
-    nll, mask = _nll(h_c @ w_unembed, y_c, z_loss)
+    logits = shard_as((h_c @ w_unembed).float(), "batch", "act_seq", "vocab")
+    nll, mask = _nll(logits, y_c, z_loss)
     return torch.sum(nll * mask), torch.sum(mask)
 
 
@@ -55,8 +71,8 @@ def chunked_softmax_xent(hidden, w_unembed, labels, chunk: int = 512,
         args = (hidden[:, c:c + chunk], w_unembed, labels[:, c:c + chunk],
                 z_loss)
         if torch.is_grad_enabled():
-            s, n = checkpoint(_chunk_loss, *args, use_reentrant=False,
-                              preserve_rng_state=False)
+            s, n = checkpoint(policy.bound(_chunk_loss), *args,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
             s, n = _chunk_loss(*args)
         tot = tot + s
@@ -86,6 +102,14 @@ def make_loss_fn(api: ModelApi, aux_weight: float = 0.01,
     return loss_fn
 
 
+def _replicated(t):
+    """A DTensor (a loss, a metric) replicated on its mesh; a plain tensor
+    as it is."""
+    if isinstance(t, DTensor):
+        return t.redistribute(placements=[Replicate()] * t.device_mesh.ndim)
+    return t
+
+
 def make_train_step(api: ModelApi, optimizer: O.AdamW,
                     microbatches: int = 1, grad_transform=None,
                     aux_weight: float = 0.01):
@@ -101,10 +125,11 @@ def make_train_step(api: ModelApi, optimizer: O.AdamW,
     def single(params, batch):
         names, leaves = zip(*params.named_parameters())
         loss, metrics = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = torch.autograd.grad(_replicated(loss), leaves,
+                                    allow_unused=True)
         grads = {n: torch.zeros_like(p) if g is None else g
                  for n, p, g in zip(names, leaves, grads)}
-        return grads, {k: v.detach() for k, v in metrics.items()}
+        return grads, {k: _replicated(v).detach() for k, v in metrics.items()}
 
     def accumulate(params, batch):
         parts = {k: torch.chunk(v, microbatches) for k, v in batch.items()}
@@ -136,7 +161,7 @@ def make_train_step(api: ModelApi, optimizer: O.AdamW,
                                                          params)
             params = O.apply_updates(params, updates)
         metrics = dict(metrics)
-        metrics["grad_norm"] = gnorm
+        metrics["grad_norm"] = _replicated(gnorm)
         return params, opt_state, metrics
 
     return train_step

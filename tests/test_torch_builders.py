@@ -44,7 +44,9 @@ TOPOS = {
     "fat_tree": lambda m: m.fat_tree(),
     "fat_tree_dc": lambda m: m.fat_tree(n_racks=4, machines_per_rack=4,
                                         n_cores=3, up=1.875, internal=7.5),
-    "tpu_pod": lambda m: m.tpu_pod_fabric(3, 4),
+    # the JAX package's default TPU rates, given to both
+    "tpu_pod": lambda m: m.tpu_pod_fabric(3, 4, ici_gbps=50.0,
+                                          dcn_gbps=6.25),
     "throttled": lambda m: m.fat_tree(up=12.5).set_capacity(
         m.LinkKind.INTERNAL, 1.875),
 }

@@ -184,6 +184,40 @@ def test_port_quickstart_matches_jax(capsys, monkeypatch):
     assert len(req.out) == 8 and req.done
 
 
+@pytest.mark.usefixtures("one_torch_thread")
+def test_port_comm_schedule_plans_the_traced_step(capsys):
+    """The JAX example compiles a step on 8 host devices, which a test
+    process that has started JAX cannot fake; the port's example traces
+    its step on meta tensors in a dry world. Held here: its lines in the
+    JAX example's format, flows on both mesh axes, and a feasible
+    schedule at the H100's link rate."""
+    from repro_torch.launch.mesh import NVLINK_BW
+    flows, sched = _load(EXAMPLES / "port_comm_schedule.py").main(
+        ["--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert len(flows) > 0
+    assert out[0] == (f"extracted {len(flows)} collective flows from the "
+                      "traced step")
+    axes = {}
+    for ln in out[1:3]:
+        m = re.fullmatch(r"  axis (\w+) *: +(\d+) flows, +([\d.]+) MB/step",
+                         ln)
+        assert m, ln
+        axes[m.group(1)] = int(m.group(2))
+    assert axes == {a: sum(f.axis == a for f in flows)
+                    for a in ("data", "model")}
+    assert re.fullmatch(r"allocator schedule: total comm [\d.]+ ms, exposed "
+                        r"\(not overlapped\) [\d.]+ ms", out[3]), out[3]
+    assert out[4].startswith("top-5 most urgent flows")
+    assert len(out) == 10
+    for ln, i in zip(out[5:], sched.order[:5]):
+        assert ln.split()[0] == flows[i].kind
+        assert f"axis={flows[i].axis}" in ln
+    for a in ("data", "model"):
+        tot = sum(r for r, f in zip(sched.rates, flows) if f.axis == a)
+        assert 0 < tot <= NVLINK_BW * 1.001
+
+
 @pytest.mark.parametrize("path", sorted(EXAMPLES.glob("port_*.py")),
                          ids=lambda p: p.stem)
 def test_port_example_defaults_to_the_card(path):

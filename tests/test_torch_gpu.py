@@ -741,3 +741,258 @@ def test_checkpoint_restores_onto_the_card(tmp_path):
         assert torch.equal(a, b.cpu()), n
     assert state["opt"].step.device.type == "cuda"
     assert all(t.device.type == "cuda" for t in state["opt"].m.values())
+
+
+def test_kernel_wrappers_on_meta_launch_nothing():
+    """On meta tensors each wrapper is a shape function, on a machine with
+    a card too: the kernels' output shapes and dtypes, no launch."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    _cuda()
+    before = (fa.LAUNCHES, ssd.LAUNCHES, ops.LAUNCHES)
+    q = torch.empty(2, 4096, 32, 64, dtype=torch.bfloat16, device="meta")
+    o = fa.flash_attention(q, q, q, causal=True)
+    assert o.is_meta and o.shape == q.shape and o.dtype == q.dtype
+    f32 = dict(dtype=torch.float32, device="meta")
+    y, st, cum = ssd.ssd_chunk(
+        torch.empty(128, 32, 128, 64, **f32), torch.empty(128, 32, 128, 1,
+                                                          **f32),
+        torch.empty(2, 32, 128, 64, **f32), torch.empty(2, 32, 128, 64, **f32),
+        torch.empty(128, 1, **f32))
+    assert [tuple(t.shape) for t in (y, st, cum)] == [
+        (128, 32, 128, 64), (128, 32, 64, 64), (128, 32, 128, 1)]
+    r = ops.waterfill_flows(*(torch.empty(9, **f32) for _ in range(3)),
+                            torch.empty(3, 9, **f32), torch.empty(3, **f32),
+                            torch.empty(3, dtype=torch.int32, device="meta"))
+    assert r.is_meta and tuple(r.shape) == (3, 9)
+    assert (fa.LAUNCHES, ssd.LAUNCHES, ops.LAUNCHES) == before
+
+
+def test_local_map_on_one_rank_cuda_mesh_matches_plain_calls():
+    """Flash (H 8 over K 2, bfloat16) and ``ssd_scan`` on replicated
+    DTensors on a 1×1 CUDA mesh (NCCL, one rank) reach the kernels through
+    ``local_map``: the same bits as the plain calls on the same tensors,
+    one launch each."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch.mesh import local_world, make_mesh
+    from repro_torch.sharding.policy import sharding_policy
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(2, 256, 8, 64, device=dev, generator=g,
+                    dtype=torch.bfloat16)
+    k = torch.randn(2, 256, 2, 64, device=dev, generator=g,
+                    dtype=torch.bfloat16)
+    v = torch.randn(2, 256, 2, 64, device=dev, generator=g,
+                    dtype=torch.bfloat16)
+    x = torch.randn(2, 256, 4, 64, device=dev, generator=g) * 0.5
+    dt = torch.rand(2, 256, 4, device=dev, generator=g) * 0.2 + 0.01
+    A = -(torch.rand(4, device=dev, generator=g) + 0.5)
+    Bm = torch.randn(2, 256, 32, device=dev, generator=g) * 0.5
+    want_o = fa.flash_attention(q, k, v, causal=True)
+    want_y, want_h = ssd.ssd_scan(x, dt, A, Bm, Bm, chunk=128)
+    with local_world("cuda"):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+
+        def rep(t):
+            return DTensor.from_local(t, mesh, [Replicate()] * 2,
+                                      run_check=False)
+        with sharding_policy(mesh):
+            f0, s0 = fa.LAUNCHES, ssd.LAUNCHES
+            o = fa.flash_attention(rep(q), rep(k), rep(v), causal=True)
+            y, h = ssd.ssd_scan(*(rep(t) for t in (x, dt, A, Bm, Bm)),
+                                chunk=128)
+            torch.cuda.synchronize()
+            assert (fa.LAUNCHES - f0, ssd.LAUNCHES - s0) == (1, 1)
+        assert torch.equal(o.to_local(), want_o)
+        assert torch.equal(y.to_local(), want_y)
+        assert torch.equal(h.to_local(), want_h)
+
+
+def _rank_of_cuda_world(n: int, rank: int, shape):
+    """Rank ``rank`` of a dry world of ``n`` ranks (the "fake" backend, in
+    this process) and a "cuda" ("data", "model") mesh of ``shape`` on it."""
+    import contextlib
+
+    from repro_torch.launch.mesh import dry_world, make_mesh
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(dry_world(n, rank=rank))
+    return stack, make_mesh(shape, ("data", "model"), "cuda")
+
+
+def _replicated_leaf(t, mesh):
+    """A replicated DTensor leaf holding a copy of ``t``, whose gradient
+    keeps the placements the backward gives it."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t.clone(), mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).requires_grad_()
+
+
+@pytest.mark.parametrize("H,K,kv_split", [(8, 2, True), (8, 4, True),
+                                          (8, 4, False)])
+def test_flash_on_sharded_heads_of_a_cuda_mesh(H, K, kv_split):
+    """Each rank of a dry (1, 4) world on a "cuda" mesh, inputs replicated
+    and split at the call site as the model splits them (query heads on
+    "heads"; KV heads on "kv_heads" where ``kv_split``, which replicates
+    K 2, else whole): the kernel runs on the rank's query heads and
+    exactly their KV heads (K < 4: a local G unlike the global one), one
+    launch a rank; its output equals the rank's heads of the unsharded
+    kernel call (1e-5), its q gradient theirs and the ranks' KV gradients
+    sum to the unsharded ones (1e-4; the backward is the plain vjp, whose
+    products run at other shapes), partial sums where the rank read some
+    of the KV heads."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.sharding import policy as pol
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(2, 256, h, 64, device=dev, generator=g)
+               for h in (H, K, K))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    full = fa.flash_attention(*leaves, causal=True)
+    up = torch.randn(full.shape, device=dev, generator=g)
+    (full * up).sum().backward()
+    gk, gv = torch.zeros_like(k), torch.zeros_like(v)
+    kv_axes = ("batch", "seq", "kv_heads" if kv_split else None, None)
+    for rank in range(4):
+        stack, mesh = _rank_of_cuda_world(4, rank, (1, 4))
+        with stack, pol.sharding_policy(mesh):
+            ql, kl, vl = (_replicated_leaf(t, mesh) for t in (q, k, v))
+            qd = pol.shard_as(ql, "batch", "seq", "heads", None)
+            kd, vd = (pol.shard_as(t, *kv_axes) for t in (kl, vl))
+            f0 = fa.LAUNCHES
+            out = fa.flash_attention(qd, kd, vd, causal=True)
+            torch.cuda.synchronize()
+            assert fa.LAUNCHES - f0 == 1
+            hs = slice(rank * H // 4, (rank + 1) * H // 4)
+            assert out.to_local().shape == full[:, :, hs].shape
+            assert torch.allclose(out.to_local(), full[:, :, hs].detach(),
+                                  rtol=1e-5, atol=1e-5)
+            (out.to_local() * up[:, :, hs]).sum().backward()
+        assert torch.allclose(ql.grad.to_local()[:, :, hs],
+                              leaves[0].grad[:, :, hs], rtol=1e-4, atol=1e-4)
+        partial = K % 4 or not kv_split
+        for t in (kl, vl):
+            assert tuple(t.grad.placements) == (
+                Replicate(), Partial() if partial else Replicate())
+        if partial:
+            gk += kl.grad.to_local()
+            gv += vl.grad.to_local()
+        else:
+            ks = slice(rank * K // 4, (rank + 1) * K // 4)
+            gk[:, :, ks] += kl.grad.to_local()[:, :, ks]
+            gv[:, :, ks] += vl.grad.to_local()[:, :, ks]
+    assert torch.allclose(gk, leaves[1].grad, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(gv, leaves[2].grad, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_scan_on_sharded_heads_of_a_cuda_mesh():
+    """Each rank of a dry (1, 4) world on a "cuda" mesh: x split by heads
+    at the call site ("inner", as ``mamba2_forward`` splits it), B and C
+    whole, so the kernel infers the local head count H / 4 from its shard,
+    one launch a rank; y and the final state equal the rank's heads of the
+    unsharded call (1e-5), its x gradient theirs and the ranks' B and C
+    gradients, partial sums, add up to the unsharded ones (1e-4)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.sharding import policy as pol
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    Bsz, L, H, P, N = 2, 256, 8, 64, 64
+    x = torch.randn(Bsz, L, H, P, device=dev, generator=g) * 0.5
+    dt = torch.rand(Bsz, L, H, device=dev, generator=g) * 0.2 + 0.01
+    A = -(torch.rand(H, device=dev, generator=g) * 1.5 + 0.5)
+    Bm = torch.randn(Bsz, L, N, device=dev, generator=g) * 0.5
+    Cm = torch.randn(Bsz, L, N, device=dev, generator=g) * 0.5
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    y, h = ssd.ssd_scan(*leaves, chunk=128)
+    up = torch.randn(y.shape, device=dev, generator=g)
+    (y * up).sum().backward()
+    gb, gc = torch.zeros_like(Bm), torch.zeros_like(Cm)
+    for rank in range(4):
+        stack, mesh = _rank_of_cuda_world(4, rank, (1, 4))
+        with stack, pol.sharding_policy(mesh):
+            loc = [_replicated_leaf(t, mesh) for t in (x, dt, A, Bm, Cm)]
+            xd = pol.shard_as(loc[0], "batch", "seq", "inner", None)
+            s0 = ssd.LAUNCHES
+            yl, hl = ssd.ssd_scan(xd, *loc[1:], chunk=128)
+            torch.cuda.synchronize()
+            assert ssd.LAUNCHES - s0 == 1
+            hs = slice(rank * H // 4, (rank + 1) * H // 4)
+            assert yl.to_local().shape == y[:, :, hs].shape
+            assert torch.allclose(yl.to_local(), y[:, :, hs].detach(),
+                                  rtol=1e-5, atol=1e-5)
+            assert torch.allclose(hl.to_local(), h[:, hs].detach(),
+                                  rtol=1e-5, atol=1e-5)
+            (yl.to_local() * up[:, :, hs]).sum().backward()
+        assert torch.allclose(loc[0].grad.to_local()[:, :, hs],
+                              leaves[0].grad[:, :, hs], rtol=1e-4, atol=1e-4)
+        for t in loc[3:]:
+            assert tuple(t.grad.placements) == (Replicate(), Partial())
+        gb += loc[3].grad.to_local()
+        gc += loc[4].grad.to_local()
+    assert torch.allclose(gb, leaves[3].grad, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(gc, leaves[4].grad, rtol=1e-4, atol=1e-4)
+
+
+def test_meshed_zamba2_step_on_card_matches_unmeshed():
+    """A reduced zamba2 train step (one group of 2 Mamba2 layers and the
+    shared block, bfloat16 compute) on a 1×1 CUDA mesh, parameters placed
+    by ``param_shardings``: the loss and the new weights equal the
+    unmeshed step's on the card (1e-6 relative), with the same kernel
+    launches."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch import shardings as S
+    from repro_torch.launch.mesh import local_world, make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.sharding.policy import sharding_policy
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.step import make_train_step
+
+    dev = _cuda()
+    cfg = get_config("zamba2-1.2b").reduced(
+        n_layers=2, hybrid_attn_every=2, ssd_chunk=64, dtype=torch.bfloat16,
+        d_model=256, n_heads=4, n_kv_heads=4)
+    api = get_model(cfg)
+    model = api.init(torch.Generator(device=dev).manual_seed(0),
+                     trainable=True)
+    b = SyntheticLM(vocab=cfg.vocab, seq_len=256, global_batch=2).batch(0)
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in b.items()}
+    opt = AdamW(lr=1e-3)
+    step = make_train_step(api, opt)
+    f0, s0 = fa.LAUNCHES, ssd.LAUNCHES
+    new0, _, m0 = step(model, opt.init(model), batch)
+    plain_launches = (fa.LAUNCHES - f0, ssd.LAUNCHES - s0)
+    with local_world("cuda"):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        with sharding_policy(mesh, S.TRAIN_RULES):
+            psh = S.param_shardings(mesh, api, S.TRAIN_RULES)
+            tree = lm.nest({n: p.detach() for n, p in model.named_parameters()})
+            meshed = api.build(S.place_tree(tree, psh), trainable=True)
+            bsh = S.batch_shardings(mesh, batch)
+            mb = {k: S.place(v, bsh[k]) for k, v in batch.items()}
+            f0, s0 = fa.LAUNCHES, ssd.LAUNCHES
+            new1, _, m1 = step(meshed, opt.init(meshed), mb)
+            torch.cuda.synchronize()
+            assert (fa.LAUNCHES - f0, ssd.LAUNCHES - s0) == plain_launches
+        assert plain_launches == (2, 4)
+        assert abs(float(m1["loss"].full_tensor()) / float(m0["loss"])
+                   - 1) <= 1e-6
+        for (n, p0), (_, p1) in zip(new0.named_parameters(),
+                                    new1.named_parameters()):
+            assert torch.allclose(p1.full_tensor(), p0, rtol=1e-6,
+                                  atol=1e-7), n

@@ -52,13 +52,16 @@ def test_guard_sees_the_whole_port():
                  "configs/qwen3_moe_235b.py", "configs/whisper_tiny.py",
                  "data/pipeline.py", "train/optim.py", "train/step.py",
                  "train/compression.py", "train/checkpoint.py",
-                 "train/driver.py"):
+                 "train/driver.py", "sharding/policy.py", "launch/mesh.py",
+                 "launch/shardings.py", "launch/comm_stats.py",
+                 "core/scheduler.py", "kernels/local.py"):
         assert must in names
     examples = {p.name for p in FILES if p.parent.name == "examples"}
     for must in ("port_multiapp_fairness.py", "port_stream_allocator_demo.py",
                  "port_dynamic_failure.py", "port_fleet_sweep.py",
                  "port_campaign_sweep.py", "port_serve_decode.py",
-                 "port_train_lm.py", "port_quickstart.py"):
+                 "port_train_lm.py", "port_quickstart.py",
+                 "port_comm_schedule.py"):
         assert must in examples
 
 
@@ -92,6 +95,7 @@ import repro_torch.models.whisper
 import repro_torch.kernels.flash_attention.ops
 import repro_torch.kernels.ssd_scan.ops
 import repro_torch.kernels.waterfill.ops
+import repro_torch.kernels.local
 import repro_torch.streams
 import repro_torch.core
 import repro_torch.configs.paper_stream
@@ -99,6 +103,11 @@ import repro_torch.data
 import repro_torch.train
 import repro_torch.train.compression
 import repro_torch.train.driver
+import repro_torch.sharding.policy
+import repro_torch.launch.mesh
+import repro_torch.launch.shardings
+import repro_torch.launch.comm_stats
+import repro_torch.core.scheduler
 import runpy
 for ex in sorted(__import__("pathlib").Path("examples").glob("port_*.py")):
     runpy.run_path(str(ex), run_name="example")
@@ -119,3 +128,19 @@ def test_entry_points_import_without_jax():
                          check=False, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_core_exports_every_name_of_the_reference():
+    """``repro_torch.core`` exports every public name of ``repro.core``
+    (the scheduler is a module of its own in both, as in the JAX
+    package)."""
+    import repro.core as jcore
+    import repro_torch.core as tcore
+    want = {n for n in vars(jcore) if not n.startswith("_")}
+    got = {n for n in vars(tcore) if not n.startswith("_")}
+    assert want - {"scheduler"} <= got
+    import repro.core.scheduler as jsched
+    import repro_torch.core.scheduler as tsched
+    for name in ("CollectiveFlow", "CommSchedule", "extract_flows",
+                 "plan_schedule"):
+        assert hasattr(jsched, name) and hasattr(tsched, name)

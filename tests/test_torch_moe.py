@@ -193,3 +193,69 @@ def test_forward_aux_sums_layers():
     dm = get_model(dense, device="cpu").init(torch.Generator().manual_seed(0))
     _, aux0 = lm.forward(dense, dm, toks, return_aux=True)
     assert float(aux0) == 0.0
+
+
+def _jax_kept(x, router, E, K, cf, G):
+    """Which (token, k) slots the JAX reference keeps when the tokens are
+    split into G groups, each with its own capacity and sort
+    (``blocks.py:361-392``): [T, K] bool."""
+    B, S, D = x.shape
+    T = B * S
+    Tl = T // G
+    C = max(int(math.ceil(K * Tl / E * cf)), K)
+    probs = jax.nn.softmax(jnp.asarray(x).reshape(G, Tl, D) @ router, -1)
+    _, top_idx = jax.lax.top_k(probs, K)
+    kept = []
+    for g in range(G):
+        flat = np.asarray(top_idx[g]).reshape(Tl * K)
+        order = np.argsort(flat, kind="stable")
+        exp_sorted = flat[order]
+        seg = np.searchsorted(exp_sorted, np.arange(E), side="left")
+        keep_sorted = np.arange(Tl * K) - seg[exp_sorted] < C
+        keep = np.empty(Tl * K, bool)
+        keep[order] = keep_sorted
+        kept.append(keep.reshape(Tl, K))
+    return np.concatenate(kept)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_moe_ffn_four_groups_matches_jax(seed, monkeypatch):
+    """G = 4 token groups, as on a mesh with 4 batch shards (the JAX
+    package's ``shard_count("batch")`` patched to 4; it imports it inside
+    ``moe_ffn``): each group has its own capacity and sort, slots are
+    dropped, and the port keeps the same slots; outputs at 1e-4."""
+    import repro.sharding.policy as jpol
+    B, S, D, F, E, K, cf = 4, 8, 32, 16, 4, 2, 0.75
+    rng = np.random.default_rng(seed)
+    jp, tp = _moe_params(rng, D, F, E)
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    monkeypatch.setattr(jpol, "shard_count", lambda name: 4)
+    monkeypatch.setattr(tb, "shard_count", lambda name: 4)
+    out, aux, route = _run(tp, x, E, K, cf)
+    jout, jaux = jb.moe_ffn(jp, jnp.asarray(x), E, K, cf)
+    kept = _jax_kept(x, jp["router"], E, K, cf, 4)
+    assert not kept.all()
+    assert np.array_equal(route["kept"].numpy(), kept)
+    assert int(route["dropped"]) == int((~kept).sum())
+    assert_close(out, np.asarray(jout), rtol=1e-4, atol=1e-4)
+    assert_close(aux, np.asarray(jaux), rtol=1e-4, atol=1e-4)
+    # one group: the G = 1 case is not the same dispatch
+    monkeypatch.setattr(tb, "shard_count", lambda name: 1)
+    one, _, route1 = _run(tp, x, E, K, cf)
+    assert not np.array_equal(route1["kept"].numpy(), kept)
+
+
+def test_moe_ffn_groups_fall_back_to_one(monkeypatch):
+    """T % G != 0: one group, as in the JAX package."""
+    import repro.sharding.policy as jpol
+    B, S, D, F, E, K = 1, 6, 16, 8, 4, 2
+    rng = np.random.default_rng(3)
+    jp, tp = _moe_params(rng, D, F, E)
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    monkeypatch.setattr(jpol, "shard_count", lambda name: 4)
+    monkeypatch.setattr(tb, "shard_count", lambda name: 4)
+    out, aux, route = _run(tp, x, E, K, 1.0)
+    jout, _ = jb.moe_ffn(jp, jnp.asarray(x), E, K, 1.0)
+    assert np.array_equal(route["kept"].numpy(),
+                          _jax_kept(x, jp["router"], E, K, 1.0, 1))
+    assert_close(out, np.asarray(jout), **TOL)

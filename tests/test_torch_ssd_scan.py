@@ -120,7 +120,7 @@ def test_scan_rejects_indivisible_chunk():
     ("bsz", ValueError, "multiple of Bsz"),
     ("big", ValueError, "exceed"),
     ("strided", ValueError, "contiguous"),
-    ("meta", ValueError, "cpu or cuda"),
+    ("meta", ValueError, "is on"),
 ])
 def test_chunk_wrapper_rejects_bad_inputs(case, exc, match):
     BH, nc, Q, P, N = 4, 2, 16, 8, 4
@@ -143,6 +143,7 @@ def test_chunk_wrapper_rejects_bad_inputs(case, exc, match):
     elif case == "strided":
         x = torch.randn(BH, nc, P, Q).transpose(2, 3)
     elif case == "meta":
-        x, dt, Bm, Cm, A = (t.to("meta") for t in (x, dt, Bm, Cm, A))
+        # meta tensors are a shape function's input, checked all the same
+        x = x.to("meta")
     with pytest.raises(exc, match=match):
         ops.ssd_chunk(x, dt, Bm, Cm, A)

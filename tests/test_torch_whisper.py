@@ -192,10 +192,10 @@ def test_whisper_model_rejects_other_families():
 def test_vis_frames_match_jax(name, seq_len):
     """The stub frontends' prefix length: whisper's frames scale with the
     prompt (capped at 1,500), a vlm's patch tokens come from its config."""
-    from repro.models.registry import ShapeSpec
+    from repro.models.registry import ShapeSpec as JaxShapeSpec
     from repro.models.registry import _vis_frames as jax_vis_frames
-    from repro_torch.models.registry import _vis_frames
+    from repro_torch.models.registry import ShapeSpec, _vis_frames
 
     spec = ShapeSpec("cell", seq_len, 1, "prefill")
-    assert _vis_frames(get_config(name), seq_len) == jax_vis_frames(
-        jax_config(name), spec)
+    assert _vis_frames(get_config(name), spec) == jax_vis_frames(
+        jax_config(name), JaxShapeSpec("cell", seq_len, 1, "prefill"))
