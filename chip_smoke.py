@@ -171,17 +171,34 @@ Phases, each of which makes the script exit non-zero when it fails:
     ``local_map``. This is the mesh main-path run: losses equal to phase
     18's steps 0-1 within 1e-6 relative (bit for bit expected: a one-rank
     mesh moves no data), 12 flash and 76 SSD launches a step; prints ms per
-    step and peak device memory;
+    step and peak device memory. Then the meshed checkpoint: the state
+    after step 0 was saved (each DTensor gathered whole), is restored onto
+    ``param_shardings`` and ``opt_shardings``, and step 1 replayed from it
+    gives the first run's loss and new state bit for bit;
+    ``TrainDriver.reshard_to`` onto the same shardings returns every leaf
+    bit for bit; prints the save and restore seconds and the peak;
 21. the comm-schedule path at full width: zamba2-1.2b at d_model 2,048 cut
     to 6 of its 38 layers (one application of the shared block), one train
     step of 8 x 4,096 tokens traced on meta tensors on a dry (4, 2)
     ("data", "model") mesh (8 ranks on the "fake" backend); prints its
-    collectives per kind and axis, operand MB and FLOPs per rank, the flows
-    and MB per axis, and ``plan_schedule`` on the card; then the same link
-    problem through ``OnlineAllocator(solver="waterfill")`` on the card,
-    held to the sort solver's rates at 2e-3 (tests/test_torch_allocator.py's
-    tolerance for that pair); collectives on both axes, no LM kernel
-    launched by the meta trace, at least one waterfill launch.
+    collectives per kind and axis, operand MB and FLOPs per rank (the
+    kernels' meta calls counting their plain versions' FLOPs, beside the
+    10.323 TFLOP of the record that did not), the flows and MB per axis,
+    and ``plan_schedule`` on the card; then the same link problem through
+    ``OnlineAllocator(solver="waterfill")`` on the card, held to the sort
+    solver's rates at 2e-3 (tests/test_torch_allocator.py's tolerance for
+    that pair); collectives on both axes, exactly 587 of them, FLOPs above
+    10.323 TFLOP, no LM kernel launched by the meta trace, at least one
+    waterfill launch;
+22. the dry run (``repro_torch.launch.dryrun.run_cell``) on "cuda"
+    production meshes at full width and depth, into a temporary directory:
+    qwen1.5-0.5b ``train_4k`` and yi-6b ``decode_32k`` on the 16x16 mesh
+    (256 ranks), mamba2-370m ``long_500k`` on the 2x16x16 mesh (512 ranks);
+    prints each cell's trace seconds, FLOPs, collectives, argument and peak
+    bytes per rank and top three call sites of traffic, then the
+    ``dryrun_report`` and ``roofline`` tables; every cell ok with FLOPs
+    and collectives, the train cell's kernel FLOPs above 0, no kernel
+    launch.
 
 Before its last line the script prints one JSON object describing each
 kernel, then the card's name and power limit; the last line is
@@ -637,6 +654,10 @@ def main() -> int:
     comm = phase_comm_schedule(dev)
     lap("21 (comm schedule)")
 
+    # ---- 22. the dry run on production meshes ---------------------------
+    dry = phase_dryrun(dev)
+    lap("22 (dry run)")
+
     main = results["datacenter"]["shared"]
     kernels = [{
         "name": "waterfill",
@@ -705,6 +726,9 @@ def main() -> int:
         entry["mesh_train_launches"] = meshed["launches"][name]
     kernels[0].update({"comm_schedule_launches": comm["launches"],
                        "comm_schedule_max_abs_err": comm["max_abs_err"]})
+    # phase 22's main path: meta traces, no launch
+    for entry in kernels:
+        entry["dryrun_launches"] = dry["launches"][entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1813,6 +1837,13 @@ COMM_SPEC = ("demo", 4096, 8, "train")
 # the waterfill kernel against the sort solver on the scheduler's link
 # problem: tests/test_torch_allocator.py's tolerance for that pair
 WATERFILL_SORT_RTOL = 2e-3
+# phase 21's record before the kernels' meta calls counted their FLOPs (on
+# the H100's machine, torch 2.11, a "cuda" mesh): FLOPs per rank, and its
+# collectives, which counting FLOPs leaves as they were
+COMM_FLOPS_UNCOUNTED = 10.323e12
+COMM_COLLECTIVES = 587
+# the call sites of phase 21's traffic printed, most bytes first
+COMM_SITES = 8
 
 
 def phase_train_mesh(dev, ref_losses) -> dict:
@@ -1824,8 +1855,14 @@ def phase_train_mesh(dev, ref_losses) -> dict:
     ``TRAIN_RULES``, batches by ``batch_shardings``, the kernels reached
     through ``local_map``. Checks the losses against phase 18's steps
     (``MESH_LOSS_RTOL``), 12 flash and 76 SSD launches a step and finite
-    metrics; prints ms per step and peak memory."""
+    metrics; prints ms per step and peak memory. Then the meshed checkpoint:
+    the state after step 0, saved (every DTensor gathered whole), is
+    restored onto ``param_shardings`` and ``opt_shardings`` and step 1 is
+    replayed from it, its loss and new state bit for bit the first run's;
+    ``TrainDriver.reshard_to`` onto the same shardings returns every leaf
+    bit for bit. Prints the save and restore seconds and the peak."""
     import math
+    import shutil
 
     import torch
     from torch.distributed.tensor import DTensor
@@ -1838,6 +1875,8 @@ def phase_train_mesh(dev, ref_losses) -> dict:
     from repro_torch.models import lm
     from repro_torch.models.registry import get_config, get_model
     from repro_torch.sharding.policy import sharding_policy
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.driver import DriverConfig, TrainDriver
     from repro_torch.train.optim import AdamW, warmup_cosine
     from repro_torch.train.step import make_train_step
 
@@ -1852,25 +1891,48 @@ def phase_train_mesh(dev, ref_losses) -> dict:
     del model
     n_apps = cfg.n_layers // cfg.hybrid_attn_every
     want = {"flash_attention": 2 * n_apps, "ssd_chunk": 2 * cfg.n_layers}
+    root = ROOT / "build" / "chip_smoke_mesh_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def leaves(params, state) -> dict:
+        out = {n: p for n, p in params.named_parameters()}
+        out.update({f"m/{n}": t for n, t in state.m.items()})
+        out.update({f"v/{n}": t for n, t in state.v.items()})
+        out["step"] = state.step
+        return out
+
+    def same(a: dict, b: dict) -> bool:
+        return list(a) == list(b) and all(
+            torch.equal(a[k].full_tensor(), b[k].full_tensor()) for k in a)
+
     losses, walls = [], []
     with local_world("cuda"):
         mesh = make_mesh((1, 1), ("data", "model"), "cuda")
         with sharding_policy(mesh, S.TRAIN_RULES):
-            params = api.build(S.place_tree(tree, S.param_shardings(
-                mesh, api, S.TRAIN_RULES)), trainable=True)
+            psh = S.param_shardings(mesh, api, S.TRAIN_RULES)
+            osh = S.opt_shardings(mesh, psh)
+            params = api.build(S.place_tree(tree, psh), trainable=True)
             del tree
             check(all(isinstance(p, DTensor) for p in params.parameters()),
                   "mesh train: every parameter a DTensor")
             state = opt.init(params)
             step = make_train_step(api, opt)
+
+            def batch(i):
+                b = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                     for k, v in pipe.batch(i).items()}
+                bsh = S.batch_shardings(mesh, b)
+                return {k: S.place(v, bsh[k]) for k, v in b.items()}
+            ck = Checkpointer(root / "ck")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             fa.LAUNCHES = ssd.LAUNCHES = 0
             for i in range(MESH_STEPS):
-                b = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
-                     for k, v in pipe.batch(i).items()}
-                bsh = S.batch_shardings(mesh, b)
-                b = {k: S.place(v, bsh[k]) for k, v in b.items()}
+                if i == 1:
+                    t0 = time.perf_counter()
+                    ck.save(i, {"params": params, "opt": state})
+                    save_s = time.perf_counter() - t0
+                b = batch(i)
                 t0 = time.perf_counter()
                 params, state, m = step(params, state, b)
                 loss = float(m["loss"].full_tensor())
@@ -1880,11 +1942,39 @@ def phase_train_mesh(dev, ref_losses) -> dict:
                       f"{ref_losses[i]:.6f}), grad_norm "
                       f"{float(m['grad_norm'].full_tensor()):.4f}, "
                       f"{1e3 * walls[-1]:.1f} ms")
+            peak = torch.cuda.max_memory_allocated()
+            # the meshed checkpoint: restore the state entering step 1 onto
+            # the shardings (the state now has its layout) and replay step 1
+            t0 = time.perf_counter()
+            restored, at = ck.restore({"params": params, "opt": state},
+                                      shardings={"params": psh, "opt": osh})
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(at == 1 and all(isinstance(p, DTensor)
+                                  and p.device_mesh == mesh for p in
+                                  restored["params"].parameters()),
+                  "mesh checkpoint: restored onto the mesh")
+            p1, s1, m1 = step(restored["params"], restored["opt"], batch(1))
+            replay_loss = float(m1["loss"].full_tensor())
+            del restored
+            first = leaves(params, state)
+            replay_bitwise = same(leaves(p1, s1), first)
+            del p1, s1
+            drv = TrainDriver(api, opt, pipe, DriverConfig(
+                steps=0, ckpt_dir=str(root / "reshard")))
+            t0 = time.perf_counter()
+            p2, s2 = drv.reshard_to(params, state, psh, osh)
+            torch.cuda.synchronize()
+            reshard_s = time.perf_counter() - t0
+            reshard_bitwise = same(leaves(p2, s2), first)
+            del p2, s2, first
             launches = {"flash_attention": fa.LAUNCHES,
                         "ssd_chunk": ssd.LAUNCHES}
-            peak = torch.cuda.max_memory_allocated()
+            ckpt_peak = torch.cuda.max_memory_allocated()
         del params, state
     torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    saved = ck.saves[-1]
     worst = max(abs(a / b - 1) for a, b in zip(losses, ref_losses))
     print(f"mesh train: zamba2-1.2b on a 1x1 DeviceMesh (NCCL, one rank), "
           f"{MESH_STEPS} steps of {TRAIN_B} x {TRAIN_S}: "
@@ -1895,17 +1985,34 @@ def phase_train_mesh(dev, ref_losses) -> dict:
           f"phase 18's (max relative difference {worst:.3e}); launches "
           f"flash {launches['flash_attention']}, ssd_chunk "
           f"{launches['ssd_chunk']} (expected {want['flash_attention']} and "
-          f"{want['ssd_chunk']} a step)")
+          f"{want['ssd_chunk']} a step, {MESH_STEPS + 1} steps with the "
+          f"replay)")
+    print(f"mesh checkpoint: the state after step 0 ({saved['bytes'] / 1e9:.2f} "
+          f"GB) saved in {save_s:.2f} s (gather and host copy "
+          f"{saved['snapshot_s']:.2f} s, write {saved['write_s']:.2f} s), "
+          f"restored onto param_shardings and opt_shardings in "
+          f"{restore_s:.2f} s; step 1 replayed: loss {replay_loss:.6f} "
+          f"({'bit for bit equal to' if replay_loss == losses[1] else 'differs from'} "
+          f"{losses[1]:.6f}), new state "
+          f"{'bit for bit' if replay_bitwise else 'NOT bit for bit'}; "
+          f"reshard_to onto the same shardings in {reshard_s:.2f} s, every "
+          f"leaf {'bit for bit' if reshard_bitwise else 'NOT bit for bit'}; "
+          f"peak device memory {ckpt_peak / 2**30:.3f} GiB")
     check(all(math.isfinite(x) for x in losses), "mesh train: finite losses")
     check(worst <= MESH_LOSS_RTOL,
           f"mesh train: losses {losses} vs phase 18's {ref_losses[:2]}")
     for name, k in want.items():
-        check(launches[name] == k * MESH_STEPS,
+        check(launches[name] == k * (MESH_STEPS + 1),
               f"mesh train: {name} launches {launches[name]} != "
-              f"{k} x {MESH_STEPS}")
+              f"{k} x {MESH_STEPS + 1}")
+    check(replay_loss == losses[1] and replay_bitwise,
+          "mesh checkpoint: the replayed step 1 is not bit for bit")
+    check(reshard_bitwise, "mesh checkpoint: reshard_to changed a leaf")
     return dict(launches=launches, losses=losses, step_ms=1e3 * walls[-1],
                 first_step_ms=1e3 * walls[0], peak_gib=peak / 2**30,
-                bitwise=losses == ref_losses[:MESH_STEPS])
+                bitwise=losses == ref_losses[:MESH_STEPS], save_s=save_s,
+                restore_s=restore_s, reshard_s=reshard_s,
+                ckpt_peak_gib=ckpt_peak / 2**30)
 
 
 def phase_comm_schedule(dev) -> dict:
@@ -1957,7 +2064,9 @@ def phase_comm_schedule(dev) -> dict:
           f"{spec.seq_len} tokens on a dry {COMM_MESH[0]} "
           f"{COMM_MESH[1]} mesh: {st['count']} collectives, "
           f"{st['total'] / 1e6:.1f} MB of operands per rank, "
-          f"{flops / 1e12:.3f} TFLOP per rank; traced in {trace_s:.2f} s")
+          f"{flops / 1e12:.3f} TFLOP per rank ({COMM_FLOPS_UNCOUNTED / 1e12:.3f}"
+          f" before the kernels' meta calls counted theirs; they add "
+          f"{records.kernel_flops / 1e12:.3f}); traced in {trace_s:.2f} s")
     print(f"comm schedule: operand MB per kind "
           f"{ {k: round(v / 1e6, 3) for k, v in kinds.items()} }; ops per "
           f"(kind, axis) {counts}")
@@ -1965,6 +2074,14 @@ def phase_comm_schedule(dev) -> dict:
           f"comm schedule: collectives on {sorted({str(c.axis) for c in records})}")
     check("all-to-all" in kinds, "comm schedule: no all-to-all recorded on "
           "the cuda mesh (DTensor's shard-to-shard redistribution)")
+    check(flops > COMM_FLOPS_UNCOUNTED and records.kernel_flops > 0,
+          f"comm schedule: {flops / 1e12:.3f} TFLOP per rank, not above "
+          f"{COMM_FLOPS_UNCOUNTED / 1e12:.3f} with the kernels counted")
+    check(st["count"] == COMM_COLLECTIVES,
+          f"comm schedule: {st['count']} collectives, not {COMM_COLLECTIVES}")
+    for site, n, b, kinds_ in comm_stats.by_site(records, COMM_SITES):
+        print(f"comm schedule:   {site}: {n} collectives, {b / 1e6:.1f} MB "
+              f"({', '.join(kinds_)})")
     flows = extract_flows(records, axes)
     per_axis = comm_stats.by_axis(flows)
     for axis, (n, b) in per_axis.items():
@@ -2003,6 +2120,69 @@ def phase_comm_schedule(dev) -> dict:
           f"comm schedule: waterfill rates off the sort solver's by {rel}")
     return dict(launches=launches, max_abs_err=err, count=st["count"],
                 per_axis=per_axis)
+
+
+# phase 22: three cells of the dry run at full width and depth on "cuda"
+# production meshes (arch, shape, mesh)
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", "pod_16x16"),
+                ("yi-6b", "decode_32k", "pod_16x16"),
+                ("mamba2-370m", "long_500k", "multipod_2x16x16"))
+
+
+def phase_dryrun(dev) -> dict:
+    """The dry run on the card's box: ``DRYRUN_CELLS`` through
+    ``dryrun.run_cell`` at full depth on dry worlds of 256 and 512 ranks
+    with "cuda" meshes, into a temporary directory (so that no cached
+    record stands in for a trace); prints each cell's trace seconds, its
+    top three call sites of traffic, and the ``dryrun_report`` and
+    ``roofline`` rows. Checks every cell ok with FLOPs and collectives,
+    the train cell's kernel FLOPs (the meta calls' count) above 0, and no
+    kernel launch (meta tensors)."""
+    import tempfile
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.waterfill import ops as wf
+    from repro_torch.launch import dryrun, dryrun_report, roofline
+    from repro_torch.models.registry import get_config, shapes_for
+
+    fa.LAUNCHES = ssd.LAUNCHES = wf.LAUNCHES = 0
+    recs = []
+    with tempfile.TemporaryDirectory() as out:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            spec = next(s for s in shapes_for(get_config(arch))
+                        if s.name == shape)
+            rec = dryrun.run_cell(arch, spec, mesh, device_type=dev.type,
+                                  results=out)
+            recs.append(rec)
+            check(rec["ok"], f"dry run: {arch} {shape} {mesh}: "
+                  f"{rec.get('error')}\n{rec.get('traceback', '')}")
+            mem = rec["memory"]
+            print(f"dry run: {arch} {shape} {mesh}: traced in "
+                  f"{rec['trace_s']:.2f} s at {rec['depth_traced']} layers "
+                  f"(torch {rec['torch']}, \"{rec['device_type']}\" mesh); "
+                  f"{rec['flops'] / 1e12:.3f} TFLOP per rank (kernels' meta "
+                  f"calls {rec['kernel_flops'] / 1e12:.3f}), "
+                  f"{rec['collectives']['count']} collectives, "
+                  f"{rec['collectives']['total'] / 1e9:.3f} GB per rank; "
+                  f"arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB, "
+                  f"peak {mem['peak_memory_in_bytes'] / 1e9:.3f} GB per rank")
+            for site, n, b, kinds in rec["call_sites"][:3]:
+                print(f"dry run:   {site}: {n} collectives, {b / 1e9:.3f} GB "
+                      f"({', '.join(kinds)})")
+            check(rec["flops"] > 0 and rec["collectives"]["count"] > 0,
+                  f"dry run: {arch} {shape}: no FLOPs or no collectives")
+            if rec["kind"] == "train":
+                check(rec["kernel_flops"] > 0,
+                      f"dry run: {arch} {shape}: the kernels' meta calls "
+                      "counted no FLOPs")
+        dryrun_report.main(["--results", out])
+        roofline.main(["--results", out, "--mesh", "all"])
+    launches = {"flash_attention": fa.LAUNCHES, "ssd_chunk": ssd.LAUNCHES,
+                "waterfill": wf.LAUNCHES}
+    check(not any(launches.values()),
+          f"dry run: a meta trace launched a kernel: {launches}")
+    return dict(launches=launches, records=recs)
 
 
 # ---- the port's examples and the paper's oracles (phase 13) --------------

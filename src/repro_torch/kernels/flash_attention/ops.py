@@ -28,6 +28,10 @@ before the library encodes it.
 
 On meta tensors the wrapper is a shape function: it returns an empty
 output of the kernel's shape and dtype, runs nothing and counts no launch.
+It adds the plain version's FLOPs for the same call (:func:`plain_flops`),
+and the kernel's input and output bytes, to the open collective record
+(``launch.comm_stats.count_flops``), without allocating the [B,H,S,T]
+scores the plain version would.
 DTensors (a step on a ``DeviceMesh``) reach the kernel through
 ``local_map`` (:mod:`repro_torch.kernels.local`), so that each rank hands
 the kernel plain local tensors: q keeps the batch and head splits its
@@ -52,6 +56,7 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.kernels.build import load
 from repro_torch.kernels.flash_attention.ref import attention_plain
 from repro_torch.kernels.local import as_dtensor, kept, shard_index, unsplit
+from repro_torch.launch.comm_stats import count_flops, tensor_bytes
 
 NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -266,14 +271,28 @@ class FlashAttention(torch.autograd.Function):
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
 
 
+def plain_flops(q_shape, k_shape) -> int:
+    """The FLOPs that ``torch.utils.flop_counter`` counts for
+    :func:`attention_plain` on q [B,S,H,hd] and k, v [B,T,K,hd]: its two
+    einsums are batched products of 2·B·H·S·T·hd each, and an einsum whose
+    contracted dim (hd, then T) has size 1 is a product without a sum,
+    which the counter does not count."""
+    B, S, H, hd = q_shape
+    T = k_shape[1]
+    return 2 * B * H * S * T * hd * ((hd > 1) + (T > 1))
+
+
 def _forward(q, k, v, causal: bool) -> torch.Tensor:
     """The kernel on CUDA tensors, the plain version on CPU tensors, an
-    empty output on meta tensors."""
+    empty output on meta tensors (its plain version's FLOPs counted)."""
     global LAUNCHES
     if q.device.type == "cpu":
         return _plain(q, k, v, causal)
     if q.device.type == "meta":
-        return torch.empty_like(q)
+        out = torch.empty_like(q)
+        count_flops(plain_flops(q.shape, k.shape),
+                    tensor_bytes(q, k, v, out))
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu, cuda or meta, not "
                          f"{q.device}")

@@ -17,7 +17,10 @@ under ``torch.no_grad``) runs the forward alone. The rest of
 :func:`ssd_scan` is PyTorch ops, which autograd differentiates itself.
 
 On meta tensors :func:`ssd_chunk` is a shape function: empty outputs of
-the kernel's shapes and dtypes, nothing run, no launch counted. DTensors
+the kernel's shapes and dtypes, nothing run, no launch counted; it adds
+the plain version's FLOPs for the same call (:func:`plain_flops`), and
+the kernel's input and output bytes, to the open collective record
+(``launch.comm_stats.count_flops``). DTensors
 (a step on a ``DeviceMesh``) enter at :func:`ssd_scan`, which runs whole
 on each rank's shard through ``local_map`` (:mod:`repro_torch.kernels.local`):
 x keeps the batch and head splits its caller gave it, and dt, A, B and C
@@ -39,6 +42,7 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.kernels.build import load
 from repro_torch.kernels.local import as_dtensor, kept, shard_index, unsplit
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_plain
+from repro_torch.launch.comm_stats import count_flops, tensor_bytes
 
 NAME = "ssd_chunk"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_chunk.cu"
@@ -176,9 +180,16 @@ class SsdChunk(torch.autograd.Function):
             return torch.autograd.grad(outs, leaves, (dy, dst, dcum))
 
 
+def plain_flops(BH: int, nc: int, Q: int, P: int, N: int) -> int:
+    """The FLOPs that ``torch.utils.flop_counter`` counts for
+    :func:`ssd_chunk_plain` on x [BH,nc,Q,P] and B, C [·,nc,Q,N]: its three
+    batched products C·Bᵀ, M·x and xᵀ·wB."""
+    return 2 * BH * nc * Q * (Q * N + Q * P + P * N)
+
+
 def _forward(x, dt, B, C, A):
     """The kernel on CUDA tensors, the plain version on CPU tensors, empty
-    outputs on meta tensors."""
+    outputs on meta tensors (their plain version's FLOPs counted)."""
     global LAUNCHES
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, B, C, A)
@@ -190,7 +201,11 @@ def _forward(x, dt, B, C, A):
     y = torch.empty_like(x)
     st = torch.empty((BH, nc, P, N), dtype=torch.float32, device=x.device)
     cum = torch.empty_like(dt)
-    if x.numel() == 0 or x.device.type == "meta":
+    if x.device.type == "meta":
+        count_flops(plain_flops(BH, nc, Q, P, N),
+                    tensor_bytes(x, dt, B, C, A, y, st, cum))
+        return y, st, cum
+    if x.numel() == 0:
         return y, st, cum
     H = BH // Bsz
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count

@@ -16,7 +16,20 @@ collectives move nothing. The same mode counts this rank's FLOPs, with
 the formulas of ``torch.utils.flop_counter`` applied to the local ops
 (DTensor's global ops and the meta ops it runs to propagate shardings
 are not counted), so that the count is what one rank computes, as the
-JAX package's ``cost_analysis()`` of a partitioned program.
+JAX package's ``cost_analysis()`` of a partitioned program. On meta
+tensors the flash-attention and SSD chunk wrappers launch nothing and run
+no product; each calls :func:`count_flops` with its plain version's count
+for the same call (the same formulas), so that a record counts the
+kernels' forwards and their recomputes as the plain versions would.
+
+The record also keeps ``bytes_accessed``, this rank's memory traffic with
+every op unfused (the counterpart of ``cost_analysis()``'s "bytes
+accessed"): each local op's input and output bytes, views and
+allocations excluded, a kernel's inputs and outputs once; and, per
+collective, its call site: the line of the port that asked for it (the
+caller of ``shard_as``, or the model or kernel-wrapper line whose op
+DTensor redistributed; a redistribution's backward by its forward's site,
+marked "backward: ", another backward function's by its autograd node).
 
 :func:`collective_stats` sums operand bytes per kind with the JAX package's
 rules, from each op's result shape and group size g:
@@ -35,13 +48,16 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import sys
 from collections import defaultdict
+from pathlib import Path
 
 import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 _DTYPE_BYTES = {
@@ -85,6 +101,7 @@ class Collective:
     group_size: int
     axis: str | None                         # mesh axis of the group
     name: str = ""                           # the op's name
+    site: str = ""                           # the port's line that issued it
 
     @property
     def bytes(self) -> int:
@@ -131,9 +148,93 @@ def _tensors(x):
 
 
 class Record(list):
-    """The collectives of a block (a list of :class:`Collective`), and
-    ``flops``, the FLOPs of this rank's ops in it."""
+    """The collectives of a block (a list of :class:`Collective`);
+    ``flops``, the FLOPs of this rank's ops in it, of which
+    ``kernel_flops`` came from :func:`count_flops`; and ``bytes_accessed``,
+    their unfused memory traffic."""
     flops: int = 0
+    kernel_flops: int = 0
+    bytes_accessed: int = 0
+
+
+# the records open now, innermost last; process-wide, as the sharding
+# policy is, since a backward's recomputes may run on autograd's thread
+_OPEN: list[Record] = []
+
+
+def count_flops(n: int, nbytes: int = 0) -> None:
+    """Add ``n`` FLOPs, and ``nbytes`` of traffic, to the innermost open
+    record (a kernel wrapper's meta call, which runs no product for the
+    mode to count); nothing outside a record."""
+    if _OPEN:
+        _OPEN[-1].flops += n
+        _OPEN[-1].kernel_flops += n
+        _OPEN[-1].bytes_accessed += nbytes
+
+
+def tensor_bytes(*tensors) -> int:
+    """The bytes of the tensors' elements."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ops that move no bytes of their own: allocations and aliases (views are
+# told apart by their schema)
+_NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
+               "new_empty_strided", "detach", "alias", "lift_fresh",
+               "_local_scalar_dense"}
+_PKG = Path(__file__).resolve().parents[1]
+# frames that pass a redistribution on rather than ask for it
+_RELAYS = {str(_PKG / f) for f in ("launch/comm_stats.py",
+                                   "sharding/policy.py", "kernels/local.py")}
+# the key of a redistribution's site in its autograd node's metadata
+_SITE = "comm_stats.site"
+
+
+@contextlib.contextmanager
+def _sites_of_redistributions():
+    """Within the block each ``DTensor.redistribute`` (``shard_as``,
+    ``local_map``'s inputs, a replicated loss) writes its site into the
+    metadata of its autograd node, which names its backward's collectives."""
+    plain = DTensor.redistribute
+
+    def redistribute(self, *args, **kwargs):
+        out = plain(self, *args, **kwargs)
+        if out.grad_fn is not None:
+            out.grad_fn.metadata[_SITE] = _site()
+        return out
+    DTensor.redistribute = redistribute
+    try:
+        yield
+    finally:
+        DTensor.redistribute = plain
+
+
+def _site() -> str:
+    """Where the port asked for the collective: the innermost line of the
+    port on the stack outside the policy and this module,
+    "models/lm.py:386 (_attn_block)", marked "recompute: " when autograd's
+    backward re-runs it (a checkpointed forward); "backward: <node>" for a
+    collective of a backward function itself (say a redistribution's
+    RedistributeBackward), whose stack holds no line of the model; within
+    :func:`record` a redistribution's backward is named by the site of its
+    forward."""
+    f = sys._getframe(1)
+    while f is not None:
+        code = f.f_code
+        if code.co_name == "_engine_run_backward":
+            node = torch._C._current_autograd_node()
+            if node is None:
+                return "backward: ?"
+            return f"backward: {node.metadata.get(_SITE, node.name())}"
+        name = code.co_filename
+        if name.startswith(str(_PKG)) and name not in _RELAYS:
+            site = (f"{Path(name).relative_to(_PKG).as_posix()}:"
+                    f"{f.f_lineno} ({code.co_name})")
+            if torch._C._current_autograd_node() is not None:
+                return f"recompute: {site}"
+            return site
+        f = f.f_back
+    return "?"
 
 
 class _Recorder(TorchDispatchMode):
@@ -152,11 +253,18 @@ class _Recorder(TorchDispatchMode):
             kind = _KINDS.get(func._overloadpacket.__name__)
             if kind is not None:
                 self._add(kind, func, args, out)
-        count = flop_registry.get(func._overloadpacket)
+            return out
         # DTensor propagates shardings by running ops on fake tensors
-        if count is not None and not any(issubclass(t, FakeTensor)
-                                         for t in types):
+        if any(issubclass(t, FakeTensor) for t in types):
+            return out
+        count = flop_registry.get(func._overloadpacket)
+        if count is not None:
             self.records.flops += count(*args, **kwargs, out_val=out)
+        if not (func.is_view
+                or func._overloadpacket.__name__ in _NO_TRAFFIC):
+            self.records.bytes_accessed += tensor_bytes(
+                *(t for t in tree_leaves((args, kwargs, out))
+                  if isinstance(t, torch.Tensor)))
         return out
 
     def _add(self, kind, func, args, out):
@@ -167,7 +275,8 @@ class _Recorder(TorchDispatchMode):
         results = tuple((t.dtype, tuple(t.shape)) for t in _tensors(out))
         self.records.append(Collective(kind, results, size,
                                        self.groups.get(group),
-                                       func._overloadpacket.__name__))
+                                       func._overloadpacket.__name__,
+                                       _site()))
 
 
 @contextlib.contextmanager
@@ -180,8 +289,12 @@ def record(mesh=None):
         groups = {mesh.get_group(d).group_name: name
                   for d, name in enumerate(mesh.mesh_dim_names)}
     rec = _Recorder(groups)
-    with rec:
-        yield rec.records
+    _OPEN.append(rec.records)
+    try:
+        with rec, _sites_of_redistributions():
+            yield rec.records
+    finally:
+        _OPEN.remove(rec.records)
 
 
 def by_axis(items, per_kind: bool = False) -> dict:
@@ -197,15 +310,30 @@ def by_axis(items, per_kind: bool = False) -> dict:
     return out
 
 
+def by_site(records, top: int | None = None) -> list:
+    """The call sites of a record's collectives by operand bytes, most
+    first (the first ``top``): [site, ops, bytes, kinds]."""
+    tally: dict = {}
+    for c in records:
+        n, b, kinds = tally.get(c.site, (0, 0, set()))
+        tally[c.site] = (n + 1, b + c.bytes, kinds | {c.kind})
+    rows = sorted(tally.items(), key=lambda kv: -kv[1][1])[:top]
+    return [[site, n, b, sorted(kinds)] for site, (n, b, kinds) in rows]
+
+
 def trace_train_step(api, mesh, spec, rules: dict | None = None,
-                     optimizer=None):
+                     optimizer=None, constrain_grads: bool = False,
+                     watch=None):
     """One train step of ``api``'s model on meta tensors on ``mesh`` (a
     dry world's), under ``sharding_policy(mesh, rules)``: parameters
     placed by ``param_shardings``, the batch of ``spec`` by
-    ``batch_shardings``. Returns (the collectives it issued, the FLOPs of
-    one rank). The kernels' forwards are shape functions on meta and count
-    no FLOPs (their backwards, the plain versions' vector-Jacobian
-    products, do)."""
+    ``batch_shardings``; ``constrain_grads`` as ``make_train_step``'s.
+    ``watch({"params": model, "opt": state, "batch": batch})``, if given,
+    returns a context entered around the step (a memory tracker).
+    Returns (the collectives it issued, the FLOPs of one rank). The
+    kernels' forwards are shape functions on meta that count their plain
+    versions' FLOPs (:func:`count_flops`); their backwards, the plain
+    versions' vector-Jacobian products, run and are counted."""
     from repro_torch.launch import shardings as S
     from repro_torch.sharding.policy import sharding_policy
     from repro_torch.train.optim import AdamW
@@ -219,8 +347,10 @@ def trace_train_step(api, mesh, spec, rules: dict | None = None,
         specs = api.input_specs(spec)
         bsh = S.batch_shardings(mesh, specs, rules)
         batch = {k: S.place(v, bsh[k]) for k, v in specs.items()}
-        step = make_train_step(api, opt)
+        step = make_train_step(api, opt, constrain_grads=constrain_grads)
         state = opt.init(model)
-        with record(mesh) as records:
+        args = {"params": model, "opt": state, "batch": batch}
+        with record(mesh) as records, (
+                watch(args) if watch else contextlib.nullcontext()):
             step(model, state, batch)
     return records, records.flops

@@ -103,6 +103,8 @@ def local_world(device_type: str = DEFAULT_DEVICE):
 PEAK_FLOPS_BF16 = 989e12        # FLOP/s per GPU
 # HBM3 bandwidth (same datasheet, SXM5 column: 3.35 TB/s).
 HBM_BW = 3.35e12                # B/s per GPU
+# HBM3 capacity (same datasheet, SXM5 column: 80 GB).
+HBM_CAPACITY = 80e9             # B per GPU
 # NVLink 4 within a node: 900 GB/s per GPU in both directions together
 # (same datasheet), 450 GB/s each way.
 NVLINK_BW = 450e9               # B/s per GPU, one direction

@@ -98,17 +98,43 @@ _CACHE_AXES = {
 }
 
 
+def _cache_sharding(mesh, name: str, shape, rules) -> pol.NamedSharding:
+    ax = _CACHE_AXES.get((name, len(shape)))
+    if ax is None:
+        ax = ("layers", "batch") + (None,) * (len(shape) - 2)
+    return pol.param_sharding(mesh, ax, tuple(shape), rules)
+
+
 def cache_shardings(mesh, cache_ab: dict, rules=None) -> dict:
     """The sharding of each decode-cache buffer (nested dicts of tensors,
     as ``init_cache`` makes them), by its name and rank."""
     def walk(node, name):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
-        ax = _CACHE_AXES.get((name, node.dim()))
-        if ax is None:
-            ax = ("layers", "batch") + (None,) * (node.dim() - 2)
-        return pol.param_sharding(mesh, ax, tuple(node.shape), rules)
+        return _cache_sharding(mesh, name, node.shape, rules)
     return walk(cache_ab, None)
+
+
+def cache_zeros(like):
+    """The ``zeros(name, shape, dtype, device)`` that ``init_cache`` makes
+    its buffers with, for a prefill whose activations are ``like``: None
+    (its default) for a plain tensor; for a DTensor, zeros placed as
+    decode reads them (:func:`cache_shardings` under the active policy's
+    rules), each rank allocating only its shard."""
+    if not isinstance(like, DTensor):
+        return None
+    mesh, rules = like.device_mesh, pol.active_rules()
+
+    def zeros(name, shape, dtype, device):
+        sh = _cache_sharding(mesh, name, shape, rules)
+        local = torch.zeros(local_shape(shape, sh), dtype=dtype, device=device)
+        stride = [1]
+        for n in reversed(shape[1:]):
+            stride.insert(0, stride[0] * n)
+        return DTensor.from_local(local, mesh, sh.placements, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=tuple(stride))
+    return zeros
 
 
 def replicated(mesh) -> pol.NamedSharding:

@@ -36,7 +36,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.kernels.local import shard_index
+from repro_torch.kernels.local import as_dtensor, shard_index, unsplit
 from repro_torch.sharding.policy import placements_on, shard_as, shard_count
 
 NEG_INF = -1e30
@@ -221,10 +221,50 @@ def attn_specs(d_model: int, n_heads: int, n_kv: int, head_dim: int,
     return s
 
 
+def splittable(x, dim: int, parts: int):
+    """``x`` ready for a view that splits tensor dim ``dim`` into ``parts``
+    × the rest: a DTensor whose shards of that dim do not divide ``parts``
+    gathers it first (DTensor's view cannot split such a dim; XLA re-shards
+    on its own); ``x`` itself otherwise."""
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    n = math.prod(size for size, p in zip(x.device_mesh.shape, x.placements)
+                  if p == Shard(dim))
+    if parts % n == 0:
+        return x
+    return x.redistribute(placements=unsplit(x.placements, dim))
+
+
+class _SplittableGrad(torch.autograd.Function):
+    """The identity, whose gradient is made :func:`splittable`: put after
+    a view that merges a dim, whose backward splits that dim again."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, parts: int):
+        ctx.dim, ctx.parts = dim, parts
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return splittable(g, ctx.dim, ctx.parts), None, None
+
+
+def merged(x, dim: int, parts: int):
+    """``x``, a view that merged ``parts`` × the rest into tensor dim
+    ``dim``, with its gradient made :func:`splittable` for that view's
+    backward (on a mesh, where DTensor's matmul may return the gradient
+    sharded along the merged dim)."""
+    if isinstance(x, DTensor) and x.requires_grad:
+        return _SplittableGrad.apply(x, dim, parts)
+    return x
+
+
 def _heads_proj(x, w):
     """"bsd,dhk->bshk" as one matmul; the result is contiguous."""
     D, nh, hd = w.shape
-    return (x @ w.to(x.dtype).reshape(D, nh * hd)).view(*x.shape[:-1], nh, hd)
+    w = merged(w.to(x.dtype).reshape(D, nh * hd), -1, nh)
+    return splittable(x @ w, -1, nh).view(*x.shape[:-1], nh, hd)
 
 
 def qkv_proj(p, x, n_heads: int, n_kv: int, rope_theta: float | None,
@@ -247,8 +287,36 @@ def qkv_proj(p, x, n_heads: int, n_kv: int, rope_theta: float | None,
 def out_proj(o, wo):
     """"bshk,hkd->bsd" as one matmul."""
     nh, hd, D = wo.shape
-    return o.reshape(*o.shape[:-2], nh * hd) @ wo.to(o.dtype).reshape(
-        nh * hd, D)
+    return (merged(o.reshape(*o.shape[:-2], nh * hd), -1, nh)
+            @ merged(wo.to(o.dtype).reshape(nh * hd, D), 0, nh))
+
+
+def _gqa_attend_mesh(q, k, v, mask):
+    """:func:`gqa_attend` on DTensors (decode on a mesh), as batched
+    products over (sequence, KV head) pairs: the einsum form flattens the
+    batch and head dims, and DTensor (torch 2.11) cannot flatten two
+    sharded dims. The heads are made whole (a decode step's q is one
+    token; the cache's KV heads are whole under the default rules, its
+    positions split over "model"), so that only the batch dim of each
+    flatten is split; the products' FLOPs are the einsum's."""
+    mesh = next(t for t in (q, k, v) if isinstance(t, DTensor)).device_mesh
+    q, k, v = (as_dtensor(t, mesh) for t in (q, k, v))
+    q, k, v = (t.redistribute(placements=unsplit(t.placements, 2))
+               for t in (q, k, v))
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qb = q.reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4).reshape(
+        B * K, G * S, hd)
+    kb = k.permute(0, 2, 3, 1).reshape(B * K, hd, T)
+    vb = v.permute(0, 2, 1, 3).reshape(B * K, T, hd)
+    scores = (torch.bmm(qb, kb) * (1.0 / math.sqrt(hd))).float()
+    mask = torch.broadcast_to(mask, (B, 1, 1, S, T)).expand(
+        B, K, G, S, T).reshape(B * K, G * S, T)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.bmm(probs, vb).reshape(B, K, G, S, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
 
 
 def gqa_attend(q, k, v, mask):
@@ -257,6 +325,8 @@ def gqa_attend(q, k, v, mask):
     q: [B,S,H,hd], k/v: [B,T,K,hd] with H = K·G. mask: broadcastable to
     [B,1,1,S,T] (True = attend). Returns [B,S,H,hd].
     """
+    if isinstance(q, DTensor) or isinstance(k, DTensor):
+        return _gqa_attend_mesh(q, k, v, mask)
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K

@@ -519,11 +519,20 @@ def forward(cfg, params: LM, tokens, vis_embeds=None,
     return (logits, aux) if return_aux else logits
 
 
-def init_cache(cfg, batch: int, max_len: int, *, device) -> dict:
+def _zeros(name: str, shape, dtype, device) -> torch.Tensor:
+    """A decode-cache buffer: ``init_cache``'s default ``zeros``."""
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def init_cache(cfg, batch: int, max_len: int, *, device,
+               zeros=None) -> dict:
     """Decode caches, stacked on the layer axis as in the JAX package:
     ssm {conv [L,B,k-1,C], ssm [L,B,H,P,N] f32}; dense {k, v [L,B,T,K,hd]};
     hybrid {groups: ssm with [G, per] leading axes, shared: kv with [G],
-    tail: ssm}; conv and KV in ``cfg.dtype``."""
+    tail: ssm}; conv and KV in ``cfg.dtype``. Each buffer is
+    ``zeros(name, shape, dtype, device)`` (``torch.zeros`` unless given:
+    ``launch.shardings.cache_zeros`` places it on a mesh)."""
+    zeros = zeros or _zeros
     _check_family(cfg)
     dtype = cfg.dtype
     K, hd = cfg.n_kv_heads, cfg.hd
@@ -532,16 +541,15 @@ def init_cache(cfg, batch: int, max_len: int, *, device) -> dict:
     conv_dim = d_inner + 2 * cfg.ssm_state
 
     def kv(*lead):
-        return {n: torch.zeros((*lead, batch, max_len, K, hd), dtype=dtype,
-                               device=device) for n in ("k", "v")}
+        return {n: zeros(n, (*lead, batch, max_len, K, hd), dtype, device)
+                for n in ("k", "v")}
 
     def ssm(*lead):
         return {
-            "conv": torch.zeros((*lead, batch, cfg.ssm_conv - 1, conv_dim),
-                                dtype=dtype, device=device),
-            "ssm": torch.zeros((*lead, batch, H, cfg.ssm_head_dim,
-                                cfg.ssm_state), dtype=torch.float32,
-                               device=device),
+            "conv": zeros("conv", (*lead, batch, cfg.ssm_conv - 1, conv_dim),
+                          dtype, device),
+            "ssm": zeros("ssm", (*lead, batch, H, cfg.ssm_head_dim,
+                                 cfg.ssm_state), torch.float32, device),
         }
 
     if cfg.family == "ssm":
@@ -571,7 +579,10 @@ def prefill(cfg, params: LM, tokens, max_len: int, vis_embeds=None):
         raise ValueError(f"prompt of {S} tokens is shorter than the conv "
                          f"state ({cfg.ssm_conv - 1})")
     positions = torch.arange(S, device=x.device)[None, :]
-    cache = init_cache(cfg, Bsz, max_len, device=x.device)
+    # (imported here: launch.shardings imports this module)
+    from repro_torch.launch.shardings import cache_zeros
+    cache = init_cache(cfg, Bsz, max_len, device=x.device,
+                       zeros=cache_zeros(x))
 
     def run_ssm(layers, c):
         nonlocal x

@@ -10,7 +10,8 @@
     api.unembed(params)                    -> [D, V]
     api.prefill(params, batch, max_len)    -> (logits [B,1,V], cache)
     api.decode(params, cache, tokens, pos) -> (logits [B,1,V], cache)
-    api.init_cache(batch, max_len) / api.count_params() / api.active_params()
+    api.init_cache(batch, max_len[, device]) / api.count_params()
+    api.active_params()
     api.abstract_params() / api.param_axes()   # meta tensors / logical axes
     api.input_specs(shape)                 -> {name: meta tensor}
 
@@ -73,7 +74,8 @@ class ModelApi:
     unembed: Callable       # params -> [D, V]
     prefill: Callable       # (params, batch, max_len) -> (logits, cache)
     decode: Callable        # (params, cache, tokens, pos) -> (logits, cache)
-    init_cache: Callable    # (batch, max_len) -> cache
+    init_cache: Callable    # (batch, max_len, device=None) -> cache, on
+    #                         device (meta for a dry run) or api.device
     abstract_params: Callable   # () -> tree of float32 meta tensors
     param_axes: Callable        # () -> tree of logical-axes tuples
     input_specs: Callable       # (ShapeSpec) -> {name: meta tensor}
@@ -144,8 +146,8 @@ def _lm_api(cfg: ModelConfig, dev: torch.device) -> ModelApi:
             cfg, params, batch["tokens"], max_len, vis_embeds=vis(batch)),
         decode=lambda params, cache, tokens, pos: lm.decode_step(
             cfg, params, cache, tokens, pos),
-        init_cache=lambda batch, max_len: lm.init_cache(
-            cfg, batch, max_len, device=dev),
+        init_cache=lambda batch, max_len, device=None: lm.init_cache(
+            cfg, batch, max_len, device=device or dev),
         abstract_params=lambda: lm.abstract_params(cfg),
         param_axes=lambda: lm.param_axes(cfg),
         input_specs=lambda spec: _input_specs(cfg, spec),
@@ -170,8 +172,9 @@ def _whisper_api(cfg: ModelConfig, dev: torch.device) -> ModelApi:
             cfg, params, batch["tokens"], batch["frames"], max_len),
         decode=lambda params, cache, tokens, pos: whisper.decode_step(
             cfg, params, cache, tokens, pos),
-        init_cache=lambda batch, max_len: whisper.init_cache(
-            cfg, batch, max_len, n_frames=WHISPER_FRAMES, device=dev),
+        init_cache=lambda batch, max_len, device=None: whisper.init_cache(
+            cfg, batch, max_len, n_frames=WHISPER_FRAMES,
+            device=device or dev),
         abstract_params=lambda: whisper.abstract_params(cfg),
         param_axes=lambda: whisper.param_axes(cfg),
         input_specs=lambda spec: _input_specs(cfg, spec),

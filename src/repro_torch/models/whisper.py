@@ -33,7 +33,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models.blocks import ParamSpec
 from repro_torch.sharding.policy import shard_as
 from repro_torch.models.lm import (DenseLayer, _apply_norm, _Layer,
-                                   _norm_specs, _param, _param_dict,
+                                   _norm_specs, _param, _param_dict, _zeros,
                                    leaf_dtype, remat)
 
 
@@ -136,12 +136,21 @@ def _self_attn(cfg, p, x, causal: bool):
     return B.out_proj(o, p["attn"]["wo"]), (k, v)
 
 
+def _residual(x):
+    """A branch's output in the residual stream's placements before it is
+    added (``shard_as`` outside a policy is the identity): the add's
+    backward then hands the branch its gradient in the branch's own
+    placements, and not split along both the batch and the sequence,
+    which DTensor (torch 2.11) cannot flatten for the branch's matmul."""
+    return shard_as(x, "batch", "act_seq", "embed_act")
+
+
 def _enc_layer(cfg, p, x):
     h = _apply_norm(cfg, p["ln1"], x)
     o, _ = _self_attn(cfg, p, h, causal=False)
-    x = x + o
+    x = x + _residual(o)
     h = _apply_norm(cfg, p["ln2"], x)
-    return x + B.mlp(p["mlp"], h, cfg.act)
+    return x + _residual(B.mlp(p["mlp"], h, cfg.act))
 
 
 def encode(cfg, params: Whisper, frames):
@@ -159,12 +168,12 @@ def _dec_layer(cfg, p, x, enc_out):
     """Returns (x, self-attention (k, v), cross-attention (k, v))."""
     h = _apply_norm(cfg, p["ln1"], x)
     o, kv = _self_attn(cfg, p, h, causal=True)
-    x = x + o
+    x = x + _residual(o)
     h = _apply_norm(cfg, p["ln_x"], x)
     ckv = B.cross_kv(p["xattn"], enc_out)
-    x = x + B.cross_attention(p["xattn"], h, ckv)
+    x = x + _residual(B.cross_attention(p["xattn"], h, ckv))
     h = _apply_norm(cfg, p["ln2"], x)
-    return x + B.mlp(p["mlp"], h, cfg.act), kv, ckv
+    return x + _residual(B.mlp(p["mlp"], h, cfg.act)), kv, ckv
 
 
 def _embed(cfg, params, tokens, offset: int = 0):
@@ -205,13 +214,16 @@ def forward(cfg, params: Whisper, tokens, frames,
 
 
 def init_cache(cfg, batch: int, max_len: int, n_frames: int, *, device,
-               dtype=None) -> dict:
+               dtype=None, zeros=None) -> dict:
     """{k, v [L,B,max_len,K,hd]: self-attention; xk, xv [L,B,n_frames,K,hd]:
-    the cross-attention keys and values of the encoder output}."""
+    the cross-attention keys and values of the encoder output}; each
+    buffer ``zeros(name, shape, dtype, device)`` (``torch.zeros`` unless
+    given, as ``lm.init_cache``)."""
     dtype = dtype or cfg.dtype
     L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     shape = {"k": max_len, "v": max_len, "xk": n_frames, "xv": n_frames}
-    return {n: torch.zeros((L, batch, t, K, hd), dtype=dtype, device=device)
+    zeros = zeros or _zeros
+    return {n: zeros(n, (L, batch, t, K, hd), dtype, device)
             for n, t in shape.items()}
 
 
@@ -226,8 +238,10 @@ def prefill(cfg, params: Whisper, tokens, frames, max_len: int):
     St = y.shape[1]
     if St > max_len:
         raise ValueError(f"prompt of {St} tokens exceeds max_len {max_len}")
+    # (imported here: launch.shardings imports the models)
+    from repro_torch.launch.shardings import cache_zeros
     cache = init_cache(cfg, y.shape[0], max_len, enc_out.shape[1],
-                       device=y.device)
+                       device=y.device, zeros=cache_zeros(y))
     for i, p in enumerate(params.dec_layers):
         y, (k, v), (xk, xv) = _dec_layer(cfg, p, y, enc_out)
         cache["k"][i, :, :St] = k

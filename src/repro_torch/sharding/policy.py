@@ -174,6 +174,11 @@ def sharding_policy(mesh, rules: dict | None = None):
         _CTX = prev
 
 
+def active_rules() -> dict | None:
+    """The active policy's resolved rules (None outside a policy)."""
+    return None if _CTX is None else dict(_CTX[1])
+
+
 def spec_for(*logical: str | None) -> tuple:
     """The spec of a tuple of logical axis names (None = replicated)."""
     ctx = _CTX

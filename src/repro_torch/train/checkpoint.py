@@ -1,4 +1,4 @@
-"""Checkpointing: atomic, async, integrity-checked, restored onto a device;
+"""Checkpointing: atomic, async, integrity-checked, reshard-on-restore;
 after the JAX package's ``repro.train.checkpoint``, on the same layout.
 
 Layout (one directory per step):
@@ -11,10 +11,18 @@ Guarantees:
   * async — ``save_async`` snapshots to host memory synchronously and
     writes on a background thread, so the train loop is not blocked;
   * integrity — a per-array sha256 is recorded and verified on restore;
-  * placement — ``restore(like, device=...)`` puts the tensors on a device
-    (the CUDA card unless the caller asks for another), the counterpart of
-    the JAX package's target shardings;
+  * elasticity — ``restore(like, shardings=...)`` places each array on a
+    mesh with the given placements (``distribute_tensor``; the mesh may
+    have another rank count than the writer's), as the JAX package's
+    target shardings do; a leaf without a sharding goes to ``device`` (the
+    CUDA card unless the caller asks for another);
   * retention — the newest ``keep`` checkpoints are kept.
+
+Arrays are written whole, on one host, as the JAX package writes them. A
+DTensor leaf (a state on a ``DeviceMesh``) is gathered whole by
+``full_tensor()`` before its host copy: a collective, which every rank of
+the mesh takes, in ``save`` and in ``save_async``'s synchronous snapshot,
+before any writer thread starts.
 
 A state is a nest of dicts, lists, tuples, NamedTuples (``AdamState``),
 models (``nn.Module``: their parameters by name) and tensors; keys join the
@@ -24,6 +32,7 @@ back to the dtype of ``like`` on restore.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -36,8 +45,10 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.shardings import flatten
 from repro_torch.models.lm import rebuild
 
 SEP = "/"
@@ -66,6 +77,8 @@ def _is_leaf(x) -> bool:
 
 
 def _host(x) -> np.ndarray:
+    if isinstance(x, DTensor):
+        x = x.full_tensor()         # a collective: every rank takes it
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype == torch.bfloat16:
@@ -87,14 +100,52 @@ def _sha(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
 
 
-def _unflatten(like, arrays: dict, device, prefix: str = ""):
-    """A state of ``like``'s structure and dtypes from ``arrays``, its
-    tensors on ``device`` (models are rebuilt around them)."""
+def _sharding_items(sh, like) -> dict:
+    """{key: sharding} of one level of a sharding tree laid out as ``like``
+    (None: no shardings below). A model's shardings are the tree of its
+    parameters (``param_shardings``), keyed here by parameter name."""
+    if sh is None:
+        return {}
+    if isinstance(like, nn.Module):
+        return {k.replace(".", SEP): v for k, v in flatten(sh).items()}
+    return dict(_items(sh))
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A DTensor's mesh and placements, as a sharding-tree leaf."""
+    mesh: Any
+    placements: tuple
+
+
+def shardings_of(state):
+    """The shardings of ``state``'s tensors, laid out as ``restore`` takes
+    them: a DTensor leaf's :class:`Placement`, None for any other leaf."""
+    if _is_leaf(state):
+        if isinstance(state, DTensor):
+            return Placement(state.device_mesh, tuple(state.placements))
+        return None
+    return {k: shardings_of(v) for k, v in _items(state)}
+
+
+def _place(a: np.ndarray, like, sh, device) -> torch.Tensor:
+    t = torch.as_tensor(a)
+    dtype = like.dtype if isinstance(like, torch.Tensor) else t.dtype
+    if sh is None:
+        return t.to(device=device, dtype=dtype)
+    mesh = sh.mesh
+    return distribute_tensor(t.to(device=mesh.device_type, dtype=dtype),
+                             mesh, sh.placements)
+
+
+def _unflatten(like, arrays: dict, device, shardings=None, prefix: str = ""):
+    """A state of ``like``'s structure and dtypes from ``arrays``, each
+    tensor placed by the same-layout ``shardings`` leaf or, where there is
+    none, on ``device`` (models are rebuilt around them)."""
     if _is_leaf(like):
-        a = torch.as_tensor(arrays[prefix])
-        dtype = like.dtype if isinstance(like, torch.Tensor) else a.dtype
-        return a.to(device=device, dtype=dtype)
-    children = [(k, _unflatten(v, arrays, device,
+        return _place(arrays[prefix], like, shardings, device)
+    shs = _sharding_items(shardings, like)
+    children = [(k, _unflatten(v, arrays, device, shs.get(k),
                                f"{prefix}{SEP}{k}" if prefix else k))
                 for k, v in _items(like)]
     if isinstance(like, nn.Module):
@@ -176,11 +227,16 @@ class Checkpointer:
             return None
         return int(ckpts[-1].name.split("_")[1])
 
-    def restore(self, like: Any, step: int | None = None, device=None,
-                verify: bool = True) -> tuple[Any, int]:
-        """Restore into the structure (and dtypes) of ``like``, the tensors
-        on ``device``: the CUDA card unless the caller asks for another
-        (raises without a card)."""
+    def restore(self, like: Any, step: int | None = None,
+                shardings: Any = None, verify: bool = True,
+                device=None) -> tuple[Any, int]:
+        """Restore into the structure (and dtypes) of ``like``.
+        ``shardings`` (``like``'s layout, or None) places each array onto
+        its leaf's mesh with its placements (what ``param_shardings`` and
+        ``opt_shardings`` return): elastic restores onto another mesh pass
+        that mesh's shardings. A leaf without one goes to ``device``: the
+        CUDA card unless the caller asks for another (raises without a
+        card)."""
         device = resolve_device(device)
         # a save still on its thread would be missed (the JAX package's
         # restore does not wait, so a failure just after a checkpoint step
@@ -200,4 +256,4 @@ class Checkpointer:
                 if got != want:
                     raise IOError(f"checkpoint corruption at {k}: "
                                   f"{got} != {want}")
-        return _unflatten(like, arrays, device), step
+        return _unflatten(like, arrays, device, shardings), step

@@ -7,9 +7,10 @@
   * straggler mitigation — per-step deadline; a straggling step is
     re-executed from the same state (deterministic backup replay), and the
     deadline is widened;
-  * re-placement — ``reshard_to`` round-trips the state through the
-    checkpointer onto a device (the JAX package's re-shard onto a new mesh
-    waits for the port's mesh layer);
+  * elastic re-scale — ``reshard_to`` round-trips the state through the
+    checkpointer onto new shardings (``param_shardings`` and
+    ``opt_shardings`` of a mesh that may have another rank count), or onto
+    the driver's device where they are None;
   * failure injection — ``failure_at`` (steps that raise) and
     ``straggle_at`` (steps that sleep past the deadline) let tests verify
     the recovery paths end-to-end.
@@ -28,7 +29,7 @@ import torch
 
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models.registry import ModelApi
-from repro_torch.train.checkpoint import Checkpointer
+from repro_torch.train.checkpoint import Checkpointer, shardings_of
 from repro_torch.train.optim import AdamW
 from repro_torch.train.step import make_train_step
 
@@ -136,15 +137,22 @@ class TrainDriver:
         return b
 
     def _restore(self, params, opt_state):
-        state, step = self.ckpt.restore(
-            {"params": params, "opt": opt_state}, device=self.device)
+        """The latest checkpoint, placed as the running state is (on its
+        mesh, for a state of DTensors)."""
+        like = {"params": params, "opt": opt_state}
+        state, step = self.ckpt.restore(like, shardings=shardings_of(like),
+                                        device=self.device)
         return (state["params"], state["opt"]), step
 
-    # ------------------------------------------------------- re-placement
-    def reshard_to(self, params, opt_state, device) -> tuple[Any, Any]:
-        """Round-trip the state through host memory onto ``device``."""
+    # ------------------------------------------------------------ elastic
+    def reshard_to(self, params, opt_state, shardings_params,
+                   shardings_opt) -> tuple[Any, Any]:
+        """Elastic re-scale: round-trip the state through host memory onto
+        new shardings (a mesh whose rank count may differ: a node dropped
+        out); a None leaf or tree goes to the driver's device."""
         self.ckpt.save(0x7FFFFFFF, {"params": params, "opt": opt_state})
         state, _ = self.ckpt.restore(
             {"params": params, "opt": opt_state}, step=0x7FFFFFFF,
-            device=device)
+            shardings={"params": shardings_params, "opt": shardings_opt},
+            device=self.device)
         return state["params"], state["opt"]

@@ -3,9 +3,8 @@ JAX package's ``repro.train.step``.
 
 The JAX package's ``jax.value_and_grad`` becomes ``torch.autograd.grad``
 over the model's parameters (nothing is left in ``.grad``), and its
-``jax.checkpoint`` inside the chunked loss ``torch.utils.checkpoint``. The
-knobs that only steer XLA or the sharding (``loss_unroll``,
-``constrain_grads``) have no counterpart.
+``jax.checkpoint`` inside the chunked loss ``torch.utils.checkpoint``.
+``loss_unroll``, which only steers XLA, has no counterpart.
 
 A model whose parameters are DTensors (placed on a ``DeviceMesh`` by
 ``launch.shardings.param_shardings``) trains the same way, its batch placed
@@ -112,15 +111,22 @@ def _replicated(t):
 
 def make_train_step(api: ModelApi, optimizer: O.AdamW,
                     microbatches: int = 1, grad_transform=None,
-                    aux_weight: float = 0.01):
+                    aux_weight: float = 0.01, constrain_grads: bool = False):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics): a new model and a new state, the inputs left as they were.
     ``microbatches`` > 1 accumulates gradients over equal splits of the
     batch (one after another); the metrics are then the last microbatch's
     ``xent`` and ``loss``, as in the JAX package. ``grad_transform(grads)
     -> grads`` (a dict by parameter name) hooks in compression (top-k EF,
-    int8)."""
+    int8). ``constrain_grads`` puts each gradient into its parameter's
+    placements (``shard_as`` with the parameter's logical axes): on the
+    FSDP axis a reduce-scatter where DTensor would otherwise keep a partial
+    sum or a replica; outside a policy it changes nothing."""
     loss_fn = make_loss_fn(api, aux_weight)
+    axes = None
+    if constrain_grads:
+        from repro_torch.launch.shardings import flatten
+        axes = flatten(api.param_axes())
 
     def single(params, batch):
         names, leaves = zip(*params.named_parameters())
@@ -129,6 +135,8 @@ def make_train_step(api: ModelApi, optimizer: O.AdamW,
                                     allow_unused=True)
         grads = {n: torch.zeros_like(p) if g is None else g
                  for n, p, g in zip(names, leaves, grads)}
+        if axes is not None:
+            grads = {n: shard_as(g, *axes[n]) for n, g in grads.items()}
         return grads, {k: _replicated(v).detach() for k, v in metrics.items()}
 
     def accumulate(params, batch):

@@ -4,7 +4,8 @@ fleet layout; flash also at the moe, vlm and encdec models' launch shapes),
 the simulator's main path, a fleet run, ``moe_ffn`` and reduced zamba2,
 qwen3-moe, internvl2 and whisper serves on the card against the same runs
 on the CPU, two bitwise-equal card runs of ``moe_ffn``, and a faulted and
-resumed campaign on the card. They import no JAX, so they run on a machine
+resumed campaign on the card, and a meshed train state saved, restored and
+replayed on a one-rank CUDA mesh. They import no JAX, so they run on a machine
 that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -996,3 +997,79 @@ def test_meshed_zamba2_step_on_card_matches_unmeshed():
                                     new1.named_parameters()):
             assert torch.allclose(p1.full_tensor(), p0, rtol=1e-6,
                                   atol=1e-7), n
+
+
+def test_meshed_state_checkpoint_restores_and_replays_on_card(tmp_path):
+    """The meshed checkpoint on a 1×1 CUDA mesh (NCCL, one rank), a reduced
+    zamba2: the state after step 0 is saved (every DTensor gathered whole),
+    restored onto ``param_shardings`` and ``opt_shardings``, and step 1
+    replayed from it gives the first run's loss and new state bit for bit;
+    ``TrainDriver.reshard_to`` onto the same shardings returns every leaf
+    unchanged."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import shardings as S
+    from repro_torch.launch.mesh import local_world, make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.sharding.policy import sharding_policy
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.driver import DriverConfig, TrainDriver
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.step import make_train_step
+
+    dev = _cuda()
+    cfg = get_config("zamba2-1.2b").reduced(
+        n_layers=2, hybrid_attn_every=2, ssd_chunk=64, dtype=torch.bfloat16,
+        d_model=256, n_heads=4, n_kv_heads=4)
+    api = get_model(cfg)
+    model = api.init(torch.Generator(device=dev).manual_seed(0),
+                     trainable=True)
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=256, global_batch=2)
+    opt = AdamW(lr=1e-3)
+    step = make_train_step(api, opt)
+
+    def leaves(params, state):
+        out = {n: p for n, p in params.named_parameters()}
+        out.update({f"m/{n}": t for n, t in state.m.items()})
+        out.update({f"v/{n}": t for n, t in state.v.items()})
+        out["step"] = state.step
+        return {k: v.full_tensor() for k, v in out.items()}
+
+    with local_world("cuda"):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        with sharding_policy(mesh, S.TRAIN_RULES):
+            psh = S.param_shardings(mesh, api, S.TRAIN_RULES)
+            osh = S.opt_shardings(mesh, psh)
+            tree = lm.nest({n: p.detach() for n, p in model.named_parameters()})
+            params = api.build(S.place_tree(tree, psh), trainable=True)
+            state = opt.init(params)
+
+            def batch(i):
+                b = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                     for k, v in pipe.batch(i).items()}
+                bsh = S.batch_shardings(mesh, b)
+                return {k: S.place(v, bsh[k]) for k, v in b.items()}
+            params, state, _ = step(params, state, batch(0))
+            ck = Checkpointer(tmp_path / "ck")
+            ck.save(1, {"params": params, "opt": state})
+            p1, s1, m1 = step(params, state, batch(1))
+            restored, at = ck.restore(
+                {"params": params, "opt": state},
+                shardings={"params": psh, "opt": osh})
+            assert at == 1
+            assert all(isinstance(p, DTensor) and p.device_mesh == mesh
+                       for p in restored["params"].parameters())
+            p1r, s1r, m1r = step(restored["params"], restored["opt"],
+                                 batch(1))
+            assert float(m1r["loss"].full_tensor()) == float(
+                m1["loss"].full_tensor())
+            want = leaves(p1, s1)
+            for k, v in leaves(p1r, s1r).items():
+                assert torch.equal(v, want[k]), k
+            drv = TrainDriver(api, opt, pipe, DriverConfig(
+                steps=0, ckpt_dir=str(tmp_path / "drv")))
+            p2, s2 = drv.reshard_to(p1, s1, psh, osh)
+            for k, v in leaves(p2, s2).items():
+                assert torch.equal(v, want[k]), k

@@ -142,3 +142,45 @@ def test_meshed_step_equals_unmeshed_on_one_rank(arch):
             assert torch.allclose(p1.full_tensor(), p0, rtol=1e-6,
                                   atol=1e-7), n
 
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "whisper-tiny"])
+def test_meshed_serving_equals_unmeshed_on_one_rank(arch):
+    """Prefill and two decode steps on a real one-rank gloo mesh
+    (parameters by ``param_shardings`` under ``SERVE_RULES``; the prefill
+    places its cache by ``cache_shardings``; decode attends through the
+    mesh path of ``gqa_attend``) give the unmeshed logits."""
+    cfg = get_config(arch).reduced(n_layers=2, vocab=128)
+    api = get_model(cfg, device="cpu")
+    plain = api.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (2, 8)),
+                                    dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.tensor(rng.standard_normal(
+            (2, 16, cfg.d_model)), dtype=torch.float32)
+
+    def serve(model, place=lambda t: t):
+        logits, cache = api.prefill(model, {k: place(v) for k, v in
+                                            batch.items()}, 12)
+        out = [logits]
+        for pos in (8, 9):
+            tok = place(torch.full((2, 1), pos % cfg.vocab, dtype=torch.int32))
+            logits, cache = api.decode(model, cache, tok, pos)
+            out.append(logits)
+        return out
+
+    want = serve(plain)
+    with local_world("cpu"):
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        with pol.sharding_policy(mesh, S.SERVE_RULES):
+            psh = S.param_shardings(mesh, api, S.SERVE_RULES)
+            tree = lm.nest({n: p.detach() for n, p in plain.named_parameters()})
+            model = api.build(S.place_tree(tree, psh))
+
+            def place(t):
+                return S.place(t, S.batch_shardings(mesh, {"x": t})["x"])
+            got = [g.full_tensor() for g in serve(model, place)]
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert torch.allclose(g, w, rtol=0, atol=1e-5 * scale)

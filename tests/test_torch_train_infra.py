@@ -228,7 +228,7 @@ class TestDriver:
         dcfg = DriverConfig(steps=2, ckpt_every=100, ckpt_dir=str(tmp_path))
         drv = TrainDriver(api, AdamW(lr=1e-3), pipe, dcfg)
         params, opt_state, _ = drv.run()
-        p2, o2 = drv.reshard_to(params, opt_state, CPU)
+        p2, o2 = drv.reshard_to(params, opt_state, None, None)
         _assert_same_params(params, p2)
         assert int(o2.step) == 2
         for k in opt_state.v:
