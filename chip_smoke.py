@@ -187,18 +187,27 @@ Phases, each of which makes the script exit non-zero when it fails:
     and ``plan_schedule`` on the card; then the same link problem through
     ``OnlineAllocator(solver="waterfill")`` on the card, held to the sort
     solver's rates at 2e-3 (tests/test_torch_allocator.py's tolerance for
-    that pair); collectives on both axes, exactly 587 of them, FLOPs above
+    that pair); collectives on both axes, exactly 508 of them, FLOPs above
     10.323 TFLOP, no LM kernel launched by the meta trace, at least one
     waterfill launch;
 22. the dry run (``repro_torch.launch.dryrun.run_cell``) on "cuda"
     production meshes at full width and depth, into a temporary directory:
     qwen1.5-0.5b ``train_4k`` and yi-6b ``decode_32k`` on the 16x16 mesh
-    (256 ranks), mamba2-370m ``long_500k`` on the 2x16x16 mesh (512 ranks);
-    prints each cell's trace seconds, FLOPs, collectives, argument and peak
-    bytes per rank and top three call sites of traffic, then the
-    ``dryrun_report`` and ``roofline`` tables; every cell ok with FLOPs
-    and collectives, the train cell's kernel FLOPs above 0, no kernel
-    launch.
+    (256 ranks), mamba2-370m ``long_500k`` on the 2x16x16 mesh (512 ranks),
+    dbrx-132b ``train_4k`` on both meshes and internvl2-1b ``train_4k`` on
+    the 16x16 one; prints each cell's trace seconds, FLOPs, collectives,
+    argument and peak bytes per rank and top three call sites of traffic,
+    then the ``dryrun_report`` and ``roofline`` tables; every cell ok with
+    FLOPs and collectives, each train cell's kernel FLOPs above 0 and its
+    peak within 80 GB, dbrx's FLOPs per rank on 512 ranks at most 0.55 of
+    those on 256, no kernel launch;
+23. the sharded campaign (the main-path run of ``FleetRunner(shard=...)``):
+    phase 11's 256-scenario appaware campaign (the waterfill kernel, 60 s,
+    32-row chunks) on one stream and on four streams of the one card
+    (``shard=["cuda:0"] * 4``); prints the streams, the waterfill launches
+    per stream and scenarios/s of each; the four-stream metrics bit for bit
+    the one-stream ones, four streams each launching the kernel, as many
+    launches in all as one stream's.
 
 Before its last line the script prints one JSON object describing each
 kernel, then the card's name and power limit; the last line is
@@ -658,6 +667,11 @@ def main() -> int:
     dry = phase_dryrun(dev)
     lap("22 (dry run)")
 
+    # ---- 23. the campaign on four streams of the card (the sharded
+    # main-path run) ------------------------------------------------------
+    sharded = phase_shard(dev)
+    lap("23 (sharded campaign)")
+
     main = results["datacenter"]["shared"]
     kernels = [{
         "name": "waterfill",
@@ -729,6 +743,9 @@ def main() -> int:
     # phase 22's main path: meta traces, no launch
     for entry in kernels:
         entry["dryrun_launches"] = dry["launches"][entry["name"]]
+    # phase 23's main path (counts set to 0 just before it)
+    kernels[0].update({"shard_launches": sharded["launches"],
+                       "shard_launches_per_stream": sharded["per_stream"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -962,6 +979,52 @@ def phase_campaign(dev) -> dict:
     print(f"campaign: {SMALL_N}-scenario campaign equals FleetRunner.run bit "
           f"for bit (rows {rows_c})")
     return kern
+
+
+def phase_shard(dev) -> dict:
+    """Phase 11's 256-scenario campaign on one stream, then on four streams
+    of the one card: the same bits, each stream launching the waterfill
+    kernel on its own compute stream."""
+    import numpy as np
+
+    from repro_torch.kernels.waterfill import ops
+    from repro_torch.streams import FleetRunner, campaign_fleet, compile_fleet
+
+    sims = compile_fleet(campaign_fleet(SMALL_N), device="cpu")
+    runner = FleetRunner(device=dev)
+    kw = dict(seconds=SMALL_S, solver="waterfill", chunk_rows=32)
+    one, wall_one = timed(lambda: runner.run_campaign(
+        sims, "appaware", shard=False, **kw))
+    st_one = runner.last_stats
+    four_devs = [f"cuda:{dev.index or 0}"] * 4
+    ops.LAUNCHES = 0
+    ops.STREAM_LAUNCHES.clear()
+    four, wall_four = timed(lambda: runner.run_campaign(
+        sims, "appaware", shard=four_devs, **kw))
+    launches, per_stream = ops.LAUNCHES, sorted(ops.STREAM_LAUNCHES.values())
+    st = runner.last_stats
+    n_upd = -(-int(round(SMALL_S / 0.5)) // 10)
+    print(f"sharded campaign: {SMALL_N} scenarios, {st['n_chunks']} chunks "
+          f"of {st['chunk_rows']} rows; one stream {wall_one:.2f} s "
+          f"({SMALL_N / wall_one:.2f} scenarios/s); {st['n_streams']} "
+          f"streams on {st['devices']} {wall_four:.2f} s "
+          f"({SMALL_N / wall_four:.2f} scenarios/s), waterfill launches "
+          f"{launches} ({per_stream} per stream), peak staged "
+          f"{st['peak_staged_rows']} rows")
+    check(st["status"] == "ok" and st_one["n_streams"] == 1
+          and st["n_streams"] == 4, "sharded campaign: four streams ran")
+    check(np.array_equal(four.metrics, one.metrics),
+          "sharded campaign: four streams bit for bit one stream")
+    check(len(per_stream) == 4 and min(per_stream) > 0,
+          f"sharded campaign: every stream launches waterfill: {per_stream}")
+    check(launches == st["n_chunks"] * n_upd,
+          f"sharded campaign: {launches} launches != {st['n_chunks']} "
+          f"chunks x {n_upd} updates")
+    check(st["peak_staged_rows"] <= 3 * st["chunk_rows"] * 4,
+          "sharded campaign: staging within three slots a stream")
+    return dict(launches=launches, per_stream=per_stream,
+                scenarios_s=SMALL_N / wall_four,
+                one_stream_scenarios_s=SMALL_N / wall_one)
 
 
 def phase_resilience(dev) -> None:
@@ -1838,10 +1901,11 @@ COMM_SPEC = ("demo", 4096, 8, "train")
 # problem: tests/test_torch_allocator.py's tolerance for that pair
 WATERFILL_SORT_RTOL = 2e-3
 # phase 21's record before the kernels' meta calls counted their FLOPs (on
-# the H100's machine, torch 2.11, a "cuda" mesh): FLOPs per rank, and its
-# collectives, which counting FLOPs leaves as they were
+# the H100's machine, torch 2.11, a "cuda" mesh): FLOPs per rank; and its
+# collectives since the global norm gathers no gradient and the chunked
+# loss moves no logits (587 before)
 COMM_FLOPS_UNCOUNTED = 10.323e12
-COMM_COLLECTIVES = 587
+COMM_COLLECTIVES = 508
 # the call sites of phase 21's traffic printed, most bytes first
 COMM_SITES = 8
 
@@ -2126,7 +2190,16 @@ def phase_comm_schedule(dev) -> dict:
 # production meshes (arch, shape, mesh)
 DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", "pod_16x16"),
                 ("yi-6b", "decode_32k", "pod_16x16"),
-                ("mamba2-370m", "long_500k", "multipod_2x16x16"))
+                ("mamba2-370m", "long_500k", "multipod_2x16x16"),
+                # the MoE's dispatch on a mesh and the vlm's vision prefix
+                ("dbrx-132b", "train_4k", "pod_16x16"),
+                ("dbrx-132b", "train_4k", "multipod_2x16x16"),
+                ("internvl2-1b", "train_4k", "pod_16x16"))
+# a train cell's peak per rank must fit the card; dbrx's FLOPs per rank on
+# 512 ranks at most this share of its FLOPs on 256 (half the work a rank,
+# with 10% of room)
+HBM_BYTES = 80e9
+MULTIPOD_FLOPS_SHARE = 0.55
 
 
 def phase_dryrun(dev) -> dict:
@@ -2176,6 +2249,17 @@ def phase_dryrun(dev) -> dict:
                 check(rec["kernel_flops"] > 0,
                       f"dry run: {arch} {shape}: the kernels' meta calls "
                       "counted no FLOPs")
+                check(mem["peak_memory_in_bytes"] <= HBM_BYTES,
+                      f"dry run: {arch} {shape} {mesh}: peak "
+                      f"{mem['peak_memory_in_bytes'] / 1e9:.1f} GB > 80 GB")
+        flops = {(r["arch"], r["mesh"]): r["flops"] for r in recs}
+        share = (flops[("dbrx-132b", "multipod_2x16x16")]
+                 / flops[("dbrx-132b", "pod_16x16")])
+        print(f"dry run: dbrx-132b train_4k FLOPs per rank on 2x16x16 are "
+              f"{share:.4f} of those on 16x16")
+        check(share <= MULTIPOD_FLOPS_SHARE,
+              f"dry run: dbrx-132b on 2x16x16 does {share:.3f} of a 16x16 "
+              "rank's FLOPs")
         dryrun_report.main(["--results", out])
         roofline.main(["--results", out, "--mesh", "all"])
     launches = {"flash_attention": fa.LAUNCHES, "ssd_chunk": ssd.LAUNCHES,

@@ -46,6 +46,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "waterfill.cu"
 # counts). Callers read and reset it to show which runs went through the
 # kernel.
 LAUNCHES = 0
+# The same launches by (card index, CUDA stream handle) they were queued
+# on: a sharded campaign's streams each launch their own.
+STREAM_LAUNCHES: dict = {}
 
 # Masked flows a link's on-chip list holds (16 bytes each: index, mask
 # value and two floats of flow state). A datacenter downlink carries ~48,
@@ -172,6 +175,8 @@ def _solve(weights, backlog, rho, mask, capacity, kind, dt, flow_stride,
         raise RuntimeError("waterfill kernel launch failed: "
                            + lib.waterfill_error_string(err).decode())
     LAUNCHES += 1
+    key = (mask.device.index, stream)
+    STREAM_LAUNCHES[key] = STREAM_LAUNCHES.get(key, 0) + 1
     return out
 
 

@@ -172,6 +172,24 @@ def embed_rows(w, tokens, dtype):
         Replicate() if p.is_partial() else p for p in out.placements])
 
 
+def seq_op(fn, *xs):
+    """``fn(*xs)``, an op along the sequence dim of [B, S, D] activations
+    (a concatenation, a slice). On a mesh it runs on each rank's shards, in
+    the first input's placements with the sequence whole (every input is
+    put in them), and so does its gradient. DTensor (torch 2.11)
+    replicates the batch for a slice that starts inside the sequence, and
+    gathers the sequence for a concatenation's backward."""
+    ds = [x for x in xs if isinstance(x, DTensor)]
+    if not ds:
+        return fn(*xs)
+    mesh = ds[0].device_mesh
+    pl = unsplit(ds[0].placements, 1)
+    return local_map(fn, out_placements=list(pl),
+                     in_placements=(pl,) * len(xs),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        *(as_dtensor(x, mesh) for x in xs))
+
+
 def silu(x):
     return x * torch.sigmoid(x)
 
@@ -535,13 +553,17 @@ def record_routes():
         ROUTES = prev
 
 
-def _moe_route(probs, xf, K: int, C: int):
+def _moe_route(probs, xf, K: int, C: int, e_first: int = 0,
+               n_local: int | None = None):
     """The index steps of :func:`moe_ffn`, batched over the G groups of the
-    leading dim. probs [G,Tl,E] f32, xf [G,Tl,D] -> (xe [G,E,C,D] the
-    gathered tokens (zero in unused buffer rows), src_gate [G,E,C] f32,
-    row_of_slot [G,Tl·K] each (token, k) slot's buffer row (E·C when
-    dropped), counts [G,E] the slots routed to each expert, top_idx
-    [G,Tl,K], top probabilities [G,Tl,K+1])."""
+    leading dim. probs [G,Tl,E] f32, xf [G,Tl,D] -> (xe [G,El,C,D] the
+    gathered tokens of experts e_first.. e_first+El-1 (zero in unused
+    buffer rows; El = ``n_local``, all E by default), src_gate [G,El,C]
+    f32 their gates, row_of_slot [G,Tl·K] each (token, k) slot's buffer
+    row among all E·C (E·C when dropped), counts [G,E] the slots routed to
+    each expert, top_idx [G,Tl,K], top probabilities [G,Tl,K+1]). Every
+    rank routes its groups' tokens to all E experts; it gathers only its
+    own experts' rows."""
     G, Tl, E = probs.shape
     D = xf.shape[-1]
     dev = probs.device
@@ -575,17 +597,19 @@ def _moe_route(probs, xf, K: int, C: int):
         buf = torch.zeros((G, E * C + 1), dtype=dtype, device=dev)
         return buf.scatter(1, slot, val.to(dtype))[:, :E * C]
 
-    src_tok = fill(tok_sorted, torch.long)
+    El = E if n_local is None else n_local
+    own = slice(e_first * C, (e_first + El) * C)
+    src_tok = fill(tok_sorted, torch.long)[:, own]
     src_gate = fill(torch.where(keep, gate_sorted, 0.0), torch.float32)
-    src_valid = fill(keep, torch.float32)
-    xe = torch.gather(xf, 1, src_tok[..., None].expand(G, E * C, D))
-    xe = (xe * src_valid[..., None].to(xf.dtype)).reshape(G, E, C, D)
+    src_valid = fill(keep, torch.float32)[:, own]
+    xe = torch.gather(xf, 1, src_tok[..., None].expand(G, El * C, D))
+    xe = (xe * src_valid[..., None].to(xf.dtype)).reshape(G, El, C, D)
     row_of_slot = torch.empty_like(slot).scatter_(1, order, slot)
     # integer counts: exact in any order of the adds
     counts = torch.zeros((G, E), dtype=torch.long, device=dev).scatter_add_(
         1, expert_flat, torch.ones_like(expert_flat))
-    return (xe, src_gate.reshape(G, E, C), row_of_slot, counts, top_idx,
-            sorted_p[..., :K + 1])
+    return (xe, src_gate[:, own].reshape(G, El, C), row_of_slot, counts,
+            top_idx, sorted_p[..., :K + 1])
 
 
 def _moe_combine(out_e, row_of_slot, e_first: int, K: int):
@@ -593,19 +617,73 @@ def _moe_combine(out_e, row_of_slot, e_first: int, K: int):
     -> [G,Tl,D]: each (token, k) slot reads its buffer row (a zero row when
     it was dropped or its expert is not among these), and the K rows are
     summed in k order in out_e's dtype; no scatter-add, so the bits do not
-    depend on the order of atomics."""
+    depend on the order of atomics. One [G,Tl,D] gather per k: the K rows
+    of every token are never held at once, forward or backward."""
     G, El, C, D = out_e.shape
     rows = torch.cat([out_e.reshape(G, El * C, D),
                       torch.zeros((G, 1, D), dtype=out_e.dtype,
                                   device=out_e.device)], dim=1)
     local = row_of_slot - e_first * C
     local = torch.where((local >= 0) & (local < El * C), local, El * C)
-    picked = torch.gather(rows, 1, local[..., None].expand(*local.shape, D))
-    picked = picked.reshape(G, -1, K, D)
-    out = picked[:, :, 0]
-    for k in range(1, K):
-        out = out + picked[:, :, k]
+    local = local.reshape(G, -1, K)
+    out = None
+    for k in range(K):
+        idx = local[:, :, k]
+        picked = torch.gather(rows, 1, idx[..., None].expand(*idx.shape, D))
+        out = picked if out is None else out + picked
     return out
+
+
+def _moe_experts(probs, xf, w_gate, w_up, w_down, *, K: int, C: int,
+                 e_first: int):
+    """Route, expert FFN and combine of :func:`moe_ffn` for the experts
+    e_first.. e_first+El-1 whose weights [El,D,F], [El,D,F], [El,F,D]
+    (cast to the compute dtype) are given: -> (out [G,Tl,D], the sum of
+    these experts' rows for each token, row_of_slot, counts, top_idx, top
+    probabilities). With every expert (e_first 0) ``out`` is the MoE's
+    output; with a slice of them it is that slice's share of it, and the
+    gradients of probs and xf are that slice's shares of theirs."""
+    El = w_gate.shape[0]
+    xe, gate, row_of_slot, counts, top_idx, top_p = _moe_route(
+        probs, xf, K, C, e_first, El)
+    G, _, _, D = xe.shape
+    # the groups' buffers side by side: [El, G*C, D] against [El, D, F]
+    xg = xe.permute(1, 0, 2, 3).reshape(El, G * C, D)
+    h = silu(torch.bmm(xg, w_gate))
+    h = h * torch.bmm(xg, w_up)
+    out_e = torch.bmm(h, w_down)
+    out_e = out_e.reshape(El, G, C, D).permute(1, 0, 2, 3)
+    out_e = out_e * gate[..., None].to(out_e.dtype)
+    out = _moe_combine(out_e, row_of_slot, e_first, K)
+    return out, row_of_slot, counts, top_idx, top_p
+
+
+def _moe_on_mesh(mesh, probs, xf, weights, K: int, C: int):
+    """:func:`_moe_experts` on each rank's local shards: its token groups
+    (split over the batch axes) and its experts (split over the experts'
+    axes; weights gathered over the others, as FSDP gathers them). The
+    output is a partial sum over the experts' axes; the gradients of
+    probs and xf are partial sums there too, and the weights' partial
+    sums over the batch axes, so that DTensor reduces each gradient as it
+    puts it back in its tensor's placements. No rank holds another rank's
+    expert rows or an unsplit group."""
+    G, Tl, E = probs.shape
+    D = xf.shape[-1]
+    rows = placements_on(mesh, probs.shape, "batch", None, None)
+    ex = placements_on(mesh, (G, E, C, D), "batch", "experts", None, None)
+    split_e = [q == Shard(1) for q in ex]
+    w_pl = tuple(Shard(0) if e else Replicate() for e in split_e)
+    w_grad = tuple(Shard(0) if e else Partial() if isinstance(r, Shard)
+                   else Replicate() for e, r in zip(split_e, rows))
+    rows_grad = tuple(Partial() if e else r for e, r in zip(split_e, rows))
+    shard, n = shard_index(mesh, ex, 1)
+    fn = local_map(
+        functools.partial(_moe_experts, K=K, C=C, e_first=shard * E // n),
+        out_placements=(rows_grad,) + (rows,) * 4,
+        in_placements=(rows, rows) + (w_pl,) * 3,
+        in_grad_placements=(rows_grad, rows_grad) + (w_grad,) * 3,
+        device_mesh=mesh, redistribute_inputs=True)
+    return fn(probs, xf, *weights)
 
 
 def moe_ffn(p, x, n_experts: int, top_k: int, capacity_factor: float = 1.25):
@@ -620,9 +698,10 @@ def moe_ffn(p, x, n_experts: int, top_k: int, capacity_factor: float = 1.25):
     (Switch/GShard semantics). Every expert runs over its C buffer rows per
     group, used or not, as in the JAX package. Returns (out, aux_loss).
 
-    On a mesh (DTensor inputs) the routing runs on each rank's groups and
-    the combine on each rank's experts through ``local_map``; the expert
-    FFN is DTensor matmuls with the experts sharded (EP).
+    On a mesh (DTensor inputs) each rank routes its groups and gathers,
+    runs and combines only its own experts' rows (:func:`_moe_on_mesh`):
+    the [G, E, C, D] dispatch is split by group and by expert (EP), as the
+    reference's ``shard_as`` splits it, forward and backward.
     """
     dt = x.dtype
     B, S, D = x.shape
@@ -638,38 +717,14 @@ def moe_ffn(p, x, n_experts: int, top_k: int, capacity_factor: float = 1.25):
     logits = (xf @ p["router"].to(dt)).float()                  # [G,Tl,E]
     probs = torch.softmax(logits, dim=-1)
     mesh = xf.device_mesh if isinstance(xf, DTensor) else None
-
-    route = functools.partial(_moe_route, K=K, C=C)
-    combine = functools.partial(_moe_combine, K=K, e_first=0)
-    if mesh is not None:
-        rows = placements_on(mesh, probs.shape, "batch", None, None)
-        route = local_map(route, out_placements=(rows,) * 6,
-                          in_placements=(rows, rows), device_mesh=mesh,
-                          redistribute_inputs=True)
-        # a rank combines its own experts' rows: a partial sum over the
-        # ranks that split the experts
-        ex = placements_on(mesh, (G, E, C, D), "batch", "experts", None,
-                           None)
-        shard, n = shard_index(mesh, ex, 1)
-        combine = local_map(
-            functools.partial(_moe_combine, K=K, e_first=shard * E // n),
-            out_placements=[Partial() if q == Shard(1) else q for q in ex],
-            in_placements=(ex, rows), device_mesh=mesh,
-            redistribute_inputs=True)
-    xe, src_gate, row_of_slot, counts, top_idx, top_probs = route(probs, xf)
-    xe = shard_as(xe, "batch", "experts", None, "embed_act")
-
-    # ---- expert FFN (EP: experts sharded, contraction local) -----------
-    # the groups' buffers side by side: [E, G*C, D] against [E, D, F]
-    xg = xe.permute(1, 0, 2, 3).reshape(E, G * C, D)
-    h = silu(torch.bmm(xg, p["w_gate"].to(dt)))
-    h = h * torch.bmm(xg, p["w_up"].to(dt))
-    out_e = torch.bmm(h, p["w_down"].to(dt))
-    out_e = out_e.reshape(E, G, C, D).permute(1, 0, 2, 3)
-    out_e = out_e * src_gate[..., None].to(dt)
-
-    out = combine(out_e, row_of_slot).reshape(B, S, D)
-    out = shard_as(out, "batch", "act_seq", "embed_act")
+    weights = [p[k].to(dt) for k in ("w_gate", "w_up", "w_down")]
+    if mesh is None:
+        out, row_of_slot, counts, top_idx, top_probs = _moe_experts(
+            probs, xf, *weights, K=K, C=C, e_first=0)
+    else:
+        out, row_of_slot, counts, top_idx, top_probs = _moe_on_mesh(
+            mesh, probs, xf, weights, K, C)
+    out = shard_as(out.reshape(B, S, D), "batch", "act_seq", "embed_act")
 
     # load-balancing aux loss (Switch-style, global mean)
     me = probs.mean(dim=(0, 1))                                  # [E]

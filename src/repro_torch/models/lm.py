@@ -49,9 +49,11 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.local import as_dtensor, unsplit
 from repro_torch.models import blocks as B
 from repro_torch.models.blocks import ParamSpec
 from repro_torch.sharding import policy
@@ -452,7 +454,14 @@ def _embed(cfg, params, tokens, vis_embeds=None):
         if vis_embeds is None:
             raise ValueError("vlm needs patch embeddings (vis_embeds)")
         v = vis_embeds.to(cfg.dtype) @ params.vis_proj.to(cfg.dtype)
-        x = torch.cat([v, x], dim=1)
+        if isinstance(x, DTensor):
+            # patch and token embeddings in the token embeddings' layout
+            # with the sequence whole (the prefix shifts every sequence
+            # shard), so that each rank concatenates its own shards
+            mesh, pl = x.device_mesh, unsplit(x.placements, 1)
+            x = x.redistribute(mesh, pl)
+            v = as_dtensor(v, mesh).redistribute(mesh, pl)
+        x = B.seq_op(lambda x, v: torch.cat([v, x], dim=1), x, v)
     return shard_as(x, "batch", "act_seq", "embed_act")
 
 

@@ -67,12 +67,22 @@ and *compute*. A slot is refilled only after its occupant's chunk was
 backoff, a transfer watchdog, bisection and quarantine of non-finite rows,
 checkpoint/resume; :mod:`repro_torch.streams.faults` injects faults).
 
-The port runs on one device. ``shard`` is accepted for the reference's
-signature and has no effect: sharding the scenario axis, and round-robin
-chunk streams, across several cards are not ported.
+``shard`` spreads the work over devices (:meth:`FleetRunner._shard_devices`):
+``True`` every visible device of the runner's type (every card on "cuda",
+the one CPU device on "cpu"), ``False`` the runner's own device, or a list
+of devices, where a repeated device counts once per entry (``["cpu"] * 4``
+or ``["cuda:0"] * 4`` stand in for four devices, as the reference's tests
+emulate four with ``--xla_force_host_platform_device_count``). ``run``
+splits each bucket's padded rows into one contiguous piece per device, each
+piece its own tick loop on its device; ``run_campaign`` sends chunk ``j`` to
+stream ``j % n_streams``, each stream with its own host slots and copy
+stream (and compute stream, on a card). A chunk's padded row count does not
+depend on the device count, so the shard changes where a chunk runs, never
+what it computes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -128,6 +138,13 @@ def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``dev`` with its index: "cuda" is the current card."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _sync(dev: torch.device) -> None:
@@ -721,9 +738,9 @@ def _checkpoint_append(path: str, fp: str, j: int, idxs,
 
 
 class FleetRunner:
-    """Persistent bucketed fleet executor (see module docstring), on one
+    """Persistent bucketed fleet executor (see module docstring), on its
     device (default: the CUDA card; raises without one unless
-    ``device="cpu"``).
+    ``device="cpu"``) and, with ``shard``, on a list of devices.
 
     Caches, all per instance: the host staging buffers per (bucket shape,
     members, rows), the device-resident pack per staging key, and the
@@ -846,7 +863,8 @@ class FleetRunner:
                 self._filled.pop(k, None)
         # restaging rewrites the buffers: this key's device pack (and any
         # evicted key's) is stale
-        for dk in [d for d in self._device if d == key or d in evict]:
+        for dk in [d for d in self._device
+                   if d[0] == key or d[0] in evict]:
             self._device.pop(dk, None)
         bufs = self._staging.setdefault(key, {})
         stacked = self._fill_bucket(bufs, sims, shape, rows)
@@ -873,6 +891,32 @@ class FleetRunner:
             enf[b] = sim.is_dynamic
         return xf, enf
 
+    # ------------------------------------------------------------ devices
+    def _shard_devices(self, shard) -> list[torch.device]:
+        """The devices ``shard`` names: ``False`` this runner's device;
+        ``True`` every visible device of its type (each card on "cuda", the
+        one CPU device on "cpu"); or a sequence of devices of its type, one
+        per entry, repeats included. A device that does not exist
+        raises."""
+        if shard is False:
+            return [_indexed(self.device)]
+        if shard is True:
+            if self.device.type == "cuda":
+                return [torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+            return [_indexed(self.device)]
+        devs = [_indexed(resolve_device(d)) for d in shard]
+        if not devs:
+            raise ValueError("shard names no device")
+        for d in devs:
+            if d.type != self.device.type:
+                raise ValueError(f"shard device {d} is not of this runner's "
+                                 f"type {self.device.type!r}")
+            n = torch.cuda.device_count() if d.type == "cuda" else 1
+            if d.index is not None and d.index >= n:
+                raise ValueError(f"no device {d}: {n} visible")
+        return devs
+
     # ------------------------------------------------------------ running
     def run(
         self,
@@ -886,14 +930,20 @@ class FleetRunner:
         n_groups: int = 8,
         qcap: float = 8.0,
         solver: str = "sort",
-        shard: bool = True,
+        shard: "bool | Sequence[str | torch.device]" = True,
         t_event: float = 0.0,
     ) -> list[SimResult]:
         """Run the whole fleet; one :class:`SimResult` per scenario (input
         order), each sliced back to its true shapes — element-wise equal
         to ``simulate(sims[b], ...)`` within float32 re-association, for
-        every policy (appfair buckets by exact app count). ``shard`` has no
-        effect on one device."""
+        every policy (appfair buckets by exact app count).
+
+        With several devices (``shard``, :meth:`_shard_devices`) each bucket's
+        rows are padded with inert scenarios up to a multiple of the device
+        count and cut into one contiguous piece per device; each piece runs
+        its own tick loop on its device (all in the one host loop when
+        ``fused``), and the rows come back in input order. A scenario's
+        trajectories do not depend on the piece it rides in."""
         if not sims:
             raise ValueError("empty fleet")
         sims = list(sims)
@@ -901,52 +951,64 @@ class FleetRunner:
             raise ValueError("x_fixed must give one rate vector per scenario")
         n_ticks = int(round(smoke_seconds(seconds) / dt))
         upd_every = resolve_upd_every(policy, dt, upd_every)
+        devs = self._shard_devices(shard)
+        n_dev = len(devs)
 
         plan = self.plan(sims, policy)
-        row_counts = [_round_rows(len(idxs), 1) for idxs, _ in plan]
+        row_counts = [_round_rows(len(idxs), n_dev) for idxs, _ in plan]
         loops = []
         for (idxs, shape), rows in zip(plan, row_counts):
             chunk = [sims[i] for i in idxs]
             stacked, skey, _ = self._stack_bucket(chunk, shape, idxs, rows)
-            # device-resident pack: copied once per staging, re-passed
-            # verbatim on warm calls (restaging purges it)
-            pack = self._device.get(skey)
-            if pack is None:
-                pack = {f: torch.tensor(a, device=self.device)
-                        for f, a in stacked.items()}
-                self._device[skey] = pack
             # rebuilt per call on purpose: the staging fingerprint covers
             # the scenarios, not the x_fixed values
             xf, enf = self._gates(chunk, idxs, shape, rows, x_fixed)
-            loops.append(self._bucket_loop(
-                pack, shape, xf, enf, policy, n_ticks, dt, upd_every, alpha,
-                n_groups, qcap, solver, t_event))
+            per = rows // n_dev
+            for d, dev in enumerate(devs):
+                part = slice(d * per, (d + 1) * per)
+                # device-resident pack of the piece: copied once per
+                # staging, re-passed verbatim on warm calls (restaging
+                # purges it)
+                dkey = (skey, d, n_dev)
+                pack = self._device.get(dkey)
+                if pack is None:
+                    pack = {f: torch.tensor(a[part], device=dev)
+                            for f, a in stacked.items()}
+                    self._device[dkey] = pack
+                loops.append(self._bucket_loop(
+                    pack, shape, None if xf is None else xf[part], enf[part],
+                    policy, n_ticks, dt, upd_every, alpha, n_groups, qcap,
+                    solver, t_event, dev))
         outs = _drive(loops) if self.fused else [_drive([g])[0]
                                                   for g in loops]
 
         self.last_stats = {
-            "n_dispatches": 1 if self.fused else len(plan),
+            "n_dispatches": 1 if self.fused else len(loops),
             "n_buckets": len(plan),
             "n_scenarios": len(sims),
+            "n_shards": n_dev,
+            "devices": [str(d) for d in devs],
             "rows": row_counts,
             "bucket_shapes": [dataclasses.astuple(s) for _, s in plan],
             "policy": policy,
         }
         out: list[SimResult | None] = [None] * len(sims)
         total_rebuilds = 0
-        for (idxs, _), ys in zip(plan, outs):
-            host = [y.cpu().numpy() for y in ys]
+        for bi, (idxs, _) in enumerate(plan):
+            pieces = outs[bi * n_dev:(bi + 1) * n_dev]
+            host = [np.concatenate([p[k].cpu().numpy() for p in pieces])
+                    for k in range(len(pieces[0]))]
             for b, i in enumerate(idxs):
                 out[i] = result_from_padded_row(sims[i], b, dt, *host)
                 total_rebuilds += int(host[4][b].sum())
         self.last_stats["order_rebuilds"] = total_rebuilds
         return out  # type: ignore[return-value]
 
-    def _bucket_loop(self, pack, shape, xf, enf, policy, n_ticks, dt,
-                     upd_every, alpha, n_groups, qcap, solver, t_event):
-        """A bucket's tick loop as a generator (one step per tick; the
-        device outputs are its return value), on this runner's device."""
-        dev = self.device
+    @staticmethod
+    def _bucket_loop(pack, shape, xf, enf, policy, n_ticks, dt, upd_every,
+                     alpha, n_groups, qcap, solver, t_event, dev):
+        """A bucket's (or a piece's) tick loop as a generator (one step per
+        tick; the device outputs are its return value), on ``dev``."""
         return _run_bucket(
             pack, shape.n_apps, policy, n_ticks, dt, upd_every,
             x_fixed=None if xf is None else torch.as_tensor(xf, device=dev),
@@ -967,7 +1029,7 @@ class FleetRunner:
         n_groups: int = 8,
         qcap: float = 8.0,
         solver: str = "sort",
-        shard: bool = True,
+        shard: "bool | Sequence[str | torch.device]" = True,
         t_event: float = 0.0,
         chunk_rows: int | str = 64,
         retain_trajectories: bool = False,
@@ -1003,7 +1065,16 @@ class FleetRunner:
         chunks bitwise without running them. On any error (including
         :class:`~repro_torch.streams.faults.FaultAbort`) the pipeline tears
         down and ``last_stats`` reports ``{"status": "failed", ...}``.
-        ``shard`` has no effect on one device."""
+
+        ``shard`` (:meth:`_shard_devices`) streams the chunks over
+        ``n_streams = min(devices, chunks)`` streams: chunk ``j`` runs on
+        stream ``j % n_streams``, each stream with its own three host slots,
+        its own copy stream and, on a card, its own compute stream, under
+        which every launch of its chunks (the waterfill kernel's too) runs.
+        Chunking, retries, bisection, quarantine and the checkpoint's
+        fingerprint do not depend on the device count, so a campaign's
+        metric rows are the same bits on any number of streams, and a
+        checkpoint written with one stream resumes a run with four."""
         if not sims:
             raise ValueError("empty campaign")
         auto_chunk = chunk_rows == "auto"
@@ -1045,6 +1116,26 @@ class FleetRunner:
                         for lo in range(0, len(idxs), per))
         base_key = (policy, n_ticks, dt, upd_every, alpha, n_groups, solver,
                     1, x_fixed is not None, float(t_event))
+        # the chunk stream round-robin over the devices: chunk j on stream
+        # j % n_streams
+        devs = self._shard_devices(shard)
+        n_streams = max(1, min(len(devs), len(jobs)))
+        devs = devs[:n_streams]
+        copy_streams = ([torch.cuda.Stream(d) for d in devs] if cuda
+                        else [None] * n_streams)
+        compute_streams = ([torch.cuda.Stream(d) for d in devs] if cuda
+                           else [None] * n_streams)
+
+        def on_stream(s):
+            """Stream ``s``'s device and compute stream current (on a
+            card): its chunks' launches, and the copies that read their
+            outputs, queue there."""
+            if not cuda:
+                return contextlib.nullcontext()
+            stack = contextlib.ExitStack()
+            stack.enter_context(torch.cuda.device(devs[s]))
+            stack.enter_context(torch.cuda.stream(compute_streams[s]))
+            return stack
 
         def compute(bi, pack, xf, enf):
             return _run_bucket(
@@ -1061,12 +1152,13 @@ class FleetRunner:
         transfer_s = transfer_wait_s = 0.0
         hidden_stage_s = hideable_stage_s = 0.0
         peak_rows = peak_bytes = 0
-        # pipeline state: at most ONE submitted-but-undispatched transfer
-        # (`pending`), at most two dispatched-but-uncollected chunks
-        # (`inflight`), and a staged-chunk counter driving the slot phase
-        pending: list = [None]
-        inflight: list = []
-        staged_n = 0
+        # per-stream pipeline state: at most ONE submitted-but-undispatched
+        # transfer (`pending`), at most two dispatched-but-uncollected
+        # chunks (`inflight`), and a staged-chunk counter driving the
+        # stream's slot phase
+        pending: list = [None] * n_streams
+        inflight: list[list] = [[] for _ in range(n_streams)]
+        staged_n = [0] * n_streams
 
         # ---- resilience state (inert on the fault-free path) ----
         failures: list[FailureRecord] = []
@@ -1088,7 +1180,6 @@ class FleetRunner:
                     metrics_all[i] = slab[b]  # np.save/load f32: bitwise
                 failures.extend(fails)
         n_resumed = len(done_jobs)
-        copy_stream = torch.cuda.Stream(dev) if cuda else None
 
         def _fire(stage, j):
             if faults is not None:
@@ -1111,57 +1202,60 @@ class FleetRunner:
                 _checkpoint_append(ckpt_dir, ckpt_fp, j, idxs,
                                    metrics_all[list(idxs)].copy(), fl)
 
-        def _to_device(host):
-            """Host (leaves, xf, enf) -> device tensors and the event that
-            marks their arrival. On the card the copies run on the copy
-            stream from pinned slots; on the CPU they alias the slots."""
+        def _to_device(host, s):
+            """Host (leaves, xf, enf) -> tensors on stream ``s``'s device
+            and the event that marks their arrival. On the card the copies
+            run on the stream's copy stream from pinned slots; on the CPU
+            they alias the slots."""
             leaves, xf, enf = host
             if not cuda:
                 return ({k: torch.from_numpy(v) for k, v in leaves.items()},
                         None if xf is None else torch.from_numpy(xf),
                         torch.from_numpy(enf), None)
-            with torch.cuda.stream(copy_stream):
-                pack = {k: torch.from_numpy(v).to(dev, non_blocking=True)
+            d, cs = devs[s], copy_streams[s]
+            with torch.cuda.device(d), torch.cuda.stream(cs):
+                pack = {k: torch.from_numpy(v).to(d, non_blocking=True)
                         for k, v in leaves.items()}
                 xfd = (None if xf is None else
-                       torch.from_numpy(xf).to(dev, non_blocking=True))
-                enfd = torch.from_numpy(enf).to(dev, non_blocking=True)
+                       torch.from_numpy(xf).to(d, non_blocking=True))
+                enfd = torch.from_numpy(enf).to(d, non_blocking=True)
                 ev = torch.cuda.Event()
-                ev.record(copy_stream)
+                ev.record(cs)
             return pack, xfd, enfd, ev
 
-        def _h2d(host, j):
+        def _h2d(host, j, s):
             # transfer worker: returns once the bytes landed (so a resolved
             # future means a finished copy, and the watchdog sees a hung
             # one). On the CPU the "copy" aliases the host slot, which the
             # slot rotation below guards
             t0 = time.perf_counter()
             _fire("transfer", j)
-            out = _to_device(host)
+            out = _to_device(host, s)
             if out[3] is not None:
                 out[3].synchronize()
             return out, time.perf_counter() - t0
 
         def _on_compute_stream(pack, xf, enf, ev):
-            """Order the compute stream after the copy and keep the copied
-            blocks from being reused by the copy stream while compute
-            still reads them."""
+            """Order the current (compute) stream after the copy and keep
+            the copied blocks from being reused by the copy stream while
+            compute still reads them."""
             if ev is None:
                 return
-            cur = torch.cuda.current_stream(dev)
+            cur = torch.cuda.current_stream()
             cur.wait_event(ev)
             for t in (*pack.values(), xf, enf):
                 if t is not None:
                     t.record_stream(cur)
 
-        def _collect_oldest():
+        def _collect_oldest(s):
             nonlocal block_s
-            j, bi, idxs, chunk, outs = inflight.pop(0)
+            j, bi, idxs, chunk, outs = inflight[s].pop(0)
             t0 = time.perf_counter()
             # block ONLY on the [rows, n_metrics] epilogue slab; the
             # [T, ...] trajectories stay on the device and free with `outs`
             try:
-                m = outs[6].cpu().numpy()
+                with on_stream(s):
+                    m = outs[6].cpu().numpy()
             except Exception as e:  # noqa: BLE001 — route to recovery
                 block_s += time.perf_counter() - t0
                 _recover_chunk(bi, j, idxs, chunk, e)
@@ -1178,7 +1272,8 @@ class FleetRunner:
                 if bad is None or not bad[b]:
                     metrics_all[i] = m[b]
             if results is not None:
-                host = [o.cpu().numpy() for o in outs[:6]]
+                with on_stream(s):
+                    host = [o.cpu().numpy() for o in outs[:6]]
                 for b, i in enumerate(idxs):
                     if bad is None or not bad[b]:
                         results[i] = result_from_padded_row(
@@ -1192,10 +1287,10 @@ class FleetRunner:
                         [c for b, c in enumerate(chunk) if bad[b]])
             _chunk_complete(j, idxs)
 
-        def _dispatch():
+        def _dispatch(s):
             nonlocal dispatch_s, transfer_s, transfer_wait_s, n_dispatched
-            bi, j, idxs, chunk, fut = pending[0]
-            pending[0] = None
+            bi, j, idxs, chunk, fut = pending[s]
+            pending[s] = None
             t0 = time.perf_counter()
             try:
                 (pack, xf, enf, ev), t_copy = (
@@ -1222,22 +1317,23 @@ class FleetRunner:
             t0 = time.perf_counter()
             try:
                 _fire("dispatch", j)
-                _on_compute_stream(pack, xf, enf, ev)
-                outs = compute(bi, pack, xf, enf)
+                with on_stream(s):
+                    _on_compute_stream(pack, xf, enf, ev)
+                    outs = compute(bi, pack, xf, enf)
             except Exception as e:  # noqa: BLE001 — route to recovery
                 dispatch_s += time.perf_counter() - t0
                 _recover_chunk(bi, j, idxs, chunk, e)
                 return
             n_dispatched += 1
             dispatch_s += time.perf_counter() - t0
-            inflight.append((j, bi, idxs, chunk, outs))
-            if len(inflight) > 1:
-                _collect_oldest()
+            inflight[s].append((j, bi, idxs, chunk, outs))
+            if len(inflight[s]) > 1:
+                _collect_oldest(s)
 
         # ---- recovery: synchronous retry / bisect / quarantine ----
         def _replace_executor():
             ex_holder[0].shutdown(wait=False, cancel_futures=True)
-            ex_holder[0] = ThreadPoolExecutor(max_workers=1,
+            ex_holder[0] = ThreadPoolExecutor(max_workers=n_streams,
                                               thread_name_prefix="h2d")
 
         def _stage_of(err):
@@ -1252,21 +1348,23 @@ class FleetRunner:
             subset, staged into FRESH scratch buffers — never the rotating
             slots, which an in-flight (or abandoned) transfer may alias."""
             nonlocal n_dispatched
+            s = j % n_streams
             shape, rows = plan[bi][1], cap_rows[bi]
             _fire("pack", j)
             leaves = self._fill_bucket({}, chunk, shape, rows)
             xf, enf = self._gates(chunk, idxs, shape, rows, x_fixed)
             _fire("transfer", j)
-            pack, xfd, enfd, ev = _to_device((leaves, xf, enf))
+            pack, xfd, enfd, ev = _to_device((leaves, xf, enf), s)
             _fire("dispatch", j)
-            _on_compute_stream(pack, xfd, enfd, ev)
-            outs = compute(bi, pack, xfd, enfd)
-            n_dispatched += 1
-            m = np.array(outs[6].cpu().numpy()[:len(idxs)])
+            with on_stream(s):
+                _on_compute_stream(pack, xfd, enfd, ev)
+                outs = compute(bi, pack, xfd, enfd)
+                n_dispatched += 1
+                m = np.array(outs[6].cpu().numpy()[:len(idxs)])
+                host = ([o.cpu().numpy() for o in outs[:6]]
+                        if results is not None else None)
             if faults is not None and faults.poison:
                 m[faults.poison_mask(idxs)] = np.nan
-            host = ([o.cpu().numpy() for o in outs[:6]]
-                    if results is not None else None)
             return m, host
 
         def _try_subset(bi, j, idxs, chunk):
@@ -1356,7 +1454,7 @@ class FleetRunner:
         # manual executor lifecycle: the transfer watchdog may abandon a
         # wedged executor mid-run, and the teardown must cancel whichever
         # executor is current at failure time
-        ex_holder = [ThreadPoolExecutor(max_workers=1,
+        ex_holder = [ThreadPoolExecutor(max_workers=n_streams,
                                         thread_name_prefix="h2d")]
         status = "failed"
         error_repr = None
@@ -1365,30 +1463,33 @@ class FleetRunner:
                 if j in done_jobs:
                     continue  # restored bitwise from the checkpoint
                 _fire("abort", j)
-                # compute first: if the previous chunk's bytes already
-                # landed, run it before packing the next chunk
-                if pending[0] is not None and pending[0][4].done():
-                    _dispatch()
+                s = j % n_streams
+                # compute first: if the stream's previous chunk's bytes
+                # already landed, run it before packing the next chunk
+                if pending[s] is not None and pending[s][4].done():
+                    _dispatch(s)
                 shape, rows = plan[bi][1], cap_rows[bi]
                 shape_t = dataclasses.astuple(shape)
                 chunk = [sims[i] for i in idxs]
                 t0 = time.perf_counter()
                 try:
                     _fire("pack", j)
-                    # THREE slot phases, one per pipeline stage: a slot may
-                    # be refilled only once its previous occupant was
-                    # *collected* (on the CPU the device pack aliases the
-                    # slot). The pipeline lags staging by at most two
-                    # chunks (one pending transfer plus one uncollected
-                    # dispatch), so phase c % 3 — last filled for chunk
-                    # c - 3, collected during chunk c - 2's dispatch — is
-                    # idle. Slots of any other shape are dropped (an
-                    # in-flight transfer keeps its arrays alive).
+                    # THREE slot phases per stream, one per pipeline stage:
+                    # a slot may be refilled only once its previous
+                    # occupant was *collected* (on the CPU the device pack
+                    # aliases the slot). A stream's pipeline lags its
+                    # staging by at most two chunks (one pending transfer
+                    # plus one uncollected dispatch), so phase c % 3 of its
+                    # c-th chunk — last filled for its chunk c - 3,
+                    # collected during its chunk c - 2's dispatch — is
+                    # idle. The stream's slots of any other shape are
+                    # dropped (an in-flight transfer keeps its arrays
+                    # alive).
                     for k in [k for k in self._campaign_bufs
-                              if k[:2] != (shape_t, rows)]:
+                              if k[0] == s and k[1:3] != (shape_t, rows)]:
                         del self._campaign_bufs[k]
                     bufs = self._campaign_bufs.setdefault(
-                        (shape_t, rows, staged_n % 3), {})
+                        (s, shape_t, rows, staged_n[s] % 3), {})
                     leaves = self._fill_bucket(bufs, chunk, shape, rows,
                                                pinned=cuda)
                     xf, enf = self._gates(chunk, idxs, shape, rows, x_fixed)
@@ -1398,31 +1499,33 @@ class FleetRunner:
                     stage_s += time.perf_counter() - t0
                     _recover_chunk(bi, j, idxs, chunk, e)
                     continue
-                staged_n += 1
+                staged_n[s] += 1
                 t1 = time.perf_counter()
                 stage_s += t1 - t0
                 # staging is *hidden* when compute is in flight, and
                 # *hideable* unless the pipeline had nothing to run yet
-                if inflight:
+                if any(inflight):
                     hidden_stage_s += t1 - t0
-                if inflight or pending[0] is not None:
+                if any(inflight) or any(p is not None for p in pending):
                     hideable_stage_s += t1 - t0
                 peak_bytes = max(peak_bytes, sum(
                     b.nbytes for slot in self._campaign_bufs.values()
                     for b in slot.values()))
                 peak_rows = max(peak_rows,
-                                sum(k[1] for k in self._campaign_bufs))
-                # single-entry prefetch: dispatch the previous transfer's
-                # chunk before submitting the next copy
-                if pending[0] is not None:
-                    _dispatch()
-                fut = ex_holder[0].submit(_h2d, (leaves, xf, enf), j)
-                pending[0] = (bi, j, idxs, chunk, fut)
-            # drain: dispatch the prefetched chunk, then collect
-            if pending[0] is not None:
-                _dispatch()
-            while inflight:
-                _collect_oldest()
+                                sum(k[2] for k in self._campaign_bufs))
+                # single-entry prefetch per stream: dispatch the stream's
+                # previous transfer's chunk before submitting the next copy
+                if pending[s] is not None:
+                    _dispatch(s)
+                fut = ex_holder[0].submit(_h2d, (leaves, xf, enf), j, s)
+                pending[s] = (bi, j, idxs, chunk, fut)
+            # drain: dispatch each stream's prefetched chunk, then collect
+            for s in range(n_streams):
+                if pending[s] is not None:
+                    _dispatch(s)
+            for s in range(n_streams):
+                while inflight[s]:
+                    _collect_oldest(s)
             status = "ok"
         except BaseException as e:
             error_repr = repr(e)
@@ -1431,10 +1534,11 @@ class FleetRunner:
             # teardown on success AND on any failure (including injected
             # aborts): cancel the pending transfer, drop uncollected
             # chunks, write failure-aware stats
-            if pending[0] is not None:
-                pending[0][4].cancel()
-                pending[0] = None
-            inflight.clear()
+            for s in range(n_streams):
+                if pending[s] is not None:
+                    pending[s][4].cancel()
+                    pending[s] = None
+                inflight[s].clear()
             ex_holder[0].shutdown(wait=(status == "ok"),
                                   cancel_futures=True)
             if status != "ok":
@@ -1455,7 +1559,8 @@ class FleetRunner:
                 "fingerprint": ckpt_fp,
                 "n_buckets": len(plan),
                 "n_scenarios": len(sims),
-                "n_streams": 1,
+                "n_streams": n_streams,
+                "devices": [str(d) for d in devs],
                 "rows": cap_rows,
                 "chunk_rows": max(cap_rows),
                 "target_chunk_rows": target_rows,

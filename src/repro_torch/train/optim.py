@@ -21,7 +21,7 @@ from typing import Callable, Mapping, NamedTuple
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.lm import rebuild
 
@@ -67,11 +67,49 @@ def constant(lr_value: float) -> Callable:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt(Σ‖x‖²) over the leaves (of a model, a mapping or a list), in
-    float32."""
+    float32. DTensor leaves (a state on a mesh) go by their local shards
+    (:func:`_mesh_norms`); the result is then replicated on their mesh."""
     leaves = (list(tree) if isinstance(tree, (list, tuple))
               else list(named(tree).values()))
-    norms = torch._foreach_norm([x.float() for x in leaves])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    dts = [x for x in leaves if isinstance(x, DTensor)]
+    if not dts:
+        norms = torch._foreach_norm([x.float() for x in leaves])
+        return torch.linalg.vector_norm(torch.stack(norms))
+    mesh = dts[0].device_mesh
+    gn = torch.linalg.vector_norm(torch.stack(_mesh_norms(leaves, mesh)))
+    return DTensor.from_local(gn, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _mesh_norms(leaves, mesh) -> list[torch.Tensor]:
+    """Each leaf's norm, from its local shard: the shard's norm where the
+    leaf is whole on every rank, else the square root of its shards'
+    squared norms summed over the mesh dims that split it (one all-reduce
+    of a vector of scalars per set of such dims). DTensor would gather
+    every leaf whole for ``_foreach_norm``. A partial sum is reduced
+    first. Plain leaves count as replicated."""
+    locs, split = [], []
+    for x in leaves:
+        if isinstance(x, DTensor):
+            if any(isinstance(q, Partial) for q in x.placements):
+                x = x.redistribute(mesh, [Replicate() if isinstance(
+                    q, Partial) else q for q in x.placements])
+            locs.append(x.to_local())
+            split.append(tuple(m for m, q in enumerate(x.placements)
+                               if isinstance(q, Shard)))
+        else:
+            locs.append(x)
+            split.append(())
+    norms = list(torch._foreach_norm([t.float() for t in locs]))
+    for dims in sorted(set(split) - {()}):
+        idx = [i for i, d in enumerate(split) if d == dims]
+        sq = torch.stack([norms[i] for i in idx]) ** 2
+        sq = DTensor.from_local(sq, mesh, [
+            Partial() if m in dims else Replicate()
+            for m in range(mesh.ndim)], run_check=False).full_tensor()
+        for i, n in zip(idx, torch.sqrt(sq)):
+            norms[i] = n
+    return norms
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,12 +15,15 @@ loss and the metrics come back replicated.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.local import as_dtensor
+from repro_torch.models.blocks import seq_op
 from repro_torch.models.registry import ModelApi
 from repro_torch.sharding import policy
-from repro_torch.sharding.policy import shard_as
+from repro_torch.sharding.policy import placements_on, shard_as
 from repro_torch.train import optim as O
 
 
@@ -49,8 +52,35 @@ def softmax_xent(logits, labels, z_loss: float = 0.0):
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def _chunk_loss(h_c, w_unembed, y_c, z_loss: float):
-    logits = shard_as((h_c @ w_unembed).float(), "batch", "act_seq", "vocab")
+def _logits_layout(mesh, shape, D: int):
+    """The unembedding of a [B, c, D] hidden chunk into [B, c, V] logits on
+    a mesh: the placements of (the logits, the hidden chunk, the weight,
+    their two gradients). The logits come out in ("batch", "act_seq",
+    "vocab") as they are used, each rank multiplying its own rows by the
+    weight whole along its contraction dim; so no rank computes another's
+    logits, and none moves them. The gradients are partial sums over the
+    mesh dims the other operand splits."""
+    out = placements_on(mesh, shape, "batch", "act_seq", "vocab")
+    h = tuple(q if isinstance(q, Shard) and q.dim < 2 else Replicate()
+              for q in out)
+    w = tuple(Shard(1) if q == Shard(2) else Replicate() for q in out)
+    h_grad = tuple(Partial() if q == Shard(2) else p for q, p in zip(out, h))
+    w_grad = tuple(Shard(1) if q == Shard(2) else Partial()
+                   if isinstance(q, Shard) else Replicate() for q in out)
+    return out, h, w, h_grad, w_grad
+
+
+def _chunk_loss(h_c, w_unembed, y_c, z_loss: float, layout=None):
+    if layout is None:
+        logits = shard_as((h_c @ w_unembed).float(), "batch", "act_seq",
+                          "vocab")
+    else:
+        out, h, w, h_grad, w_grad = layout
+        logits = local_map(lambda a, b: (a @ b).float(),
+                           out_placements=list(out), in_placements=(h, w),
+                           in_grad_placements=(h_grad, w_grad),
+                           device_mesh=h_c.device_mesh,
+                           redistribute_inputs=True)(h_c, w_unembed)
     nll, mask = _nll(logits, y_c, z_loss)
     return torch.sum(nll * mask), torch.sum(mask)
 
@@ -59,16 +89,28 @@ def chunked_softmax_xent(hidden, w_unembed, labels, chunk: int = 512,
                          z_loss: float = 0.0):
     """Cross-entropy without materialising [B,S,V]: a loop over sequence
     chunks; each chunk's logits are recomputed in the backward
-    (``torch.utils.checkpoint``), so peak memory is [B,chunk,V]."""
-    _, S, _ = hidden.shape
+    (``torch.utils.checkpoint``), so peak memory is [B,chunk,V]. On a mesh
+    the weight is gathered once, as FSDP gathers a weight before its
+    matmul, and each rank computes only its own rows' logits
+    (:func:`_logits_layout`): with a vocab the model axis does not split
+    DTensor (torch 2.11) would gather the batch and compute every rank's
+    logits on every rank."""
+    B, S, D = hidden.shape
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
+    layout = None
+    if isinstance(hidden, DTensor):
+        mesh = hidden.device_mesh
+        layout = _logits_layout(mesh, (B, chunk, w_unembed.shape[-1]), D)
+        w_unembed = as_dtensor(w_unembed, mesh)
+        if tuple(w_unembed.placements) != layout[2]:
+            w_unembed = w_unembed.redistribute(mesh, layout[2])
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(0, S, chunk):
         args = (hidden[:, c:c + chunk], w_unembed, labels[:, c:c + chunk],
-                z_loss)
+                z_loss, layout)
         if torch.is_grad_enabled():
             s, n = checkpoint(policy.bound(_chunk_loss), *args,
                               use_reentrant=False, preserve_rng_state=False)
@@ -87,8 +129,9 @@ def make_loss_fn(api: ModelApi, aux_weight: float = 0.01,
     def loss_fn(params, batch):
         hidden, aux = api.forward_hidden(params, batch)
         if cfg.family == "vlm":
-            # vision-prefix positions carry no token loss
-            hidden = hidden[:, cfg.n_vis_tokens:]
+            # vision-prefix positions carry no token loss (on a mesh each
+            # rank slices its own rows)
+            hidden = seq_op(lambda h: h[:, cfg.n_vis_tokens:], hidden)
         w = api.unembed(params)
         loss = chunked_softmax_xent(hidden, w, batch["labels"], z_loss=z_loss)
         metrics = {"xent": loss}

@@ -14,15 +14,27 @@ kernels' FLOPs on meta:
   and every mesh axis at the reference's one link rate;
 * the mirror of ``tests/test_scheduler.py::TestDryrunArtifacts`` over
   ``results/dryrun_torch/``, each peak held to the H100's 80 GB; it skips
-  where no sweep has written there.
+  where no sweep has written there;
+* the repairs of the MoE and vlm train cells on a mesh: a reduced
+  qwen3-moe or dbrx train step on a dry (2, 4) mesh allocates nothing at
+  the MoE's lines larger than the rank's own dispatch shard (its groups,
+  its experts) and gathers no gradient for the global norm; dbrx's FLOPs
+  per rank on a (2, 2, 4) ("pod", "data", "model") mesh are half those on
+  (2, 4); internvl2's vision prefix is concatenated and sliced off with
+  no collective; and the MoE's restructured dispatch computes the same
+  bits as the formulation it replaced, its expert slices summing to the
+  whole.
 
 Every dry world is opened by ``run_cell`` or a fixture, and destroyed."""
+import functools
 import json
 import math
 import pathlib
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro.launch import mesh as jmesh
 from repro.launch import roofline as jroof
@@ -32,6 +44,7 @@ from repro_torch.kernels.ssd_scan import ops as sops
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_plain
 from repro_torch.launch import comm_stats, dryrun, dryrun_report, roofline
 from repro_torch.launch.mesh import HBM_CAPACITY, dry_world, make_mesh
+from repro_torch.models import blocks as B
 from repro_torch.models.registry import ShapeSpec, get_config, get_model
 
 RESULTS = dryrun.RESULTS
@@ -193,6 +206,179 @@ def test_collective_term_uses_each_axis_rate():
     rates = scheduler._AXIS_BW_GBPS
     want = sum(1e10 / (rates[a] * 1e9) for a in ("pod", "data", "model"))
     assert math.isclose(roofline.collective_s(r), want, rel_tol=1e-12)
+
+
+class _Allocations(TorchDispatchMode):
+    """The bytes of every local tensor an op allocates (no views), by the
+    call site ``comm_stats`` names."""
+
+    def __init__(self):
+        super().__init__()
+        self.by_site: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view:
+            site = comm_stats._site()
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.is_meta:
+                    n = t.numel() * t.element_size()
+                    self.by_site[site] = max(self.by_site.get(site, 0), n)
+        return out
+
+
+# the MoE cells: the real experts and top-k of dbrx, qwen3-moe's top-8 over
+# 16 experts (4 a rank on the model axis of 4)
+MOE_CUTS = {"qwen3-moe-235b-a22b": dict(n_experts=16, top_k=8),
+            "dbrx-132b": dict(n_experts=16, top_k=4)}
+
+
+class _GradientsAsUpdates:
+    """An optimizer whose update is the gradients as they are. The flop
+    counter counts products only, so a step with it traces the FLOPs of one
+    with AdamW, without AdamW's many foreach ops (whose sharding
+    propagation on a three-axis dry mesh costs more than the rest of the
+    step)."""
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state, params):
+        return grads, state, torch.zeros(())
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_trace(arch, mesh_shape, n_layers, optimizer=None):
+    """A reduced train step of ``arch`` traced on a dry "cpu" mesh of
+    ``mesh_shape`` (("data", "model") or ("pod", "data", "model")): (its
+    collectives, FLOPs per rank, the largest allocation per call site)."""
+    cfg = get_config(arch).reduced(**dryrun.LITE, n_layers=n_layers,
+                                   **MOE_CUTS.get(arch, {}))
+    api = get_model(cfg, device="cpu")
+    axes = ("data", "model") if len(mesh_shape) == 2 else (
+        "pod", "data", "model")
+    allocs = _Allocations()
+    with dry_world(math.prod(mesh_shape)):
+        mesh = make_mesh(mesh_shape, axes, "cpu")
+        with allocs:
+            recs, flops = comm_stats.trace_train_step(
+                api, mesh, TRAIN, optimizer=optimizer and optimizer())
+    return recs, flops, allocs.by_site, cfg
+
+
+@pytest.mark.parametrize("arch", list(MOE_CUTS))
+def test_moe_train_keeps_the_dispatch_split(arch):
+    """No rank holds another rank's expert rows or another group's: every
+    tensor allocated at the MoE's lines (forward, recompute, or a
+    redistribution's backward) fits the rank's shard [G/2, E/4, C, D] of
+    the [G, E, C, D] dispatch (plus the combine's zero row); and the
+    global norm of the gradients gathers none of them whole."""
+    recs, _, allocs, cfg = _moe_trace(arch, (2, 4), 1)
+    G, T = 2, TRAIN.seq_len * TRAIN.global_batch
+    E, K, D = cfg.n_experts, cfg.top_k, cfg.d_model
+    C = max(math.ceil(K * (T // G) / E * 1.25), K)
+    shard = (G // 2) * ((E // 4) * C + 1) * D * 4
+    moe = {site: n for site, n in allocs.items() if "moe" in site}
+    assert moe and max(moe.values()) <= shard, sorted(
+        moe.items(), key=lambda kv: -kv[1])[:4]
+    assert max(moe.values()) * 4 > shard      # the shard itself was seen
+    gathered = [row for row in comm_stats.by_site(recs)
+                if "global_norm" in row[0] and "all-gather" in row[3]]
+    assert not gathered, gathered
+
+
+def test_dbrx_flops_per_rank_halve_on_two_pods():
+    """One expert a rank (16 over a model axis of 4 holds 4, as dbrx's 16
+    over 16 holds 1 at full size, the groups split over pod and data):
+    twice the ranks, half the FLOPs of each."""
+    _, flops_1, _, _ = _moe_trace("dbrx-132b", (2, 4), 1,
+                                  _GradientsAsUpdates)
+    _, flops_2, _, _ = _moe_trace("dbrx-132b", (2, 2, 4), 1,
+                                  _GradientsAsUpdates)
+    assert math.isclose(flops_2, flops_1 / 2, rel_tol=0.05), (flops_1,
+                                                              flops_2)
+
+
+def test_vlm_prefix_needs_no_collective():
+    """internvl2 (a vocab that the model axis does not split, as 151,655
+    does not split 16 ways): the vision prefix is concatenated in front of
+    the tokens and sliced off the hidden state on each rank's shards, with
+    no collective at either (``blocks.seq_op``), forward or backward. (The
+    embeddings are put in one layout with the sequence whole just before
+    the concatenation, in ``lm._embed``: a prefix shifts every sequence
+    shard.)"""
+    cfg = get_config("internvl2-1b").reduced(**dict(dryrun.LITE,
+                                                    vocab=1022),
+                                             n_layers=1)
+    api = get_model(cfg, device="cpu")
+    with dry_world(8):
+        mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+        recs, _ = comm_stats.trace_train_step(api, mesh, TRAIN)
+    sites = comm_stats.by_site(recs)
+    assert recs and not [r for r in sites if "seq_op" in r[0]
+                         or "(loss_fn)" in r[0]], sites
+
+
+def _moe_before(probs, xf, w_gate, w_up, w_down, K, C):
+    """The dispatch as it was: every expert's rows gathered, the combine
+    summing the K rows of each token from one [G, Tl·K, D] gather."""
+    xe, gate, row_of_slot, _, _, _ = B._moe_route(probs, xf, K, C)
+    G, E, _, D = xe.shape
+    xg = xe.permute(1, 0, 2, 3).reshape(E, G * C, D)
+    h = B.silu(torch.bmm(xg, w_gate)) * torch.bmm(xg, w_up)
+    out_e = torch.bmm(h, w_down).reshape(E, G, C, D).permute(1, 0, 2, 3)
+    out_e = out_e * gate[..., None]
+    rows = torch.cat([out_e.reshape(G, E * C, D),
+                      torch.zeros((G, 1, D), dtype=out_e.dtype)], dim=1)
+    picked = torch.gather(rows, 1, row_of_slot[..., None].expand(
+        *row_of_slot.shape, D)).reshape(G, -1, K, D)
+    out = picked[:, :, 0]
+    for k in range(1, K):
+        out = out + picked[:, :, k]
+    return out
+
+
+def test_moe_dispatch_same_bits_and_expert_slices_sum_to_whole():
+    g = torch.Generator().manual_seed(0)
+    G, Tl, D, F, E, K, C = 2, 24, 16, 8, 8, 3, 7
+    probs = torch.softmax(torch.randn(G, Tl, E, generator=g), -1)
+    xf = torch.randn(G, Tl, D, generator=g)
+    ws = [torch.randn(E, D, F, generator=g) * 0.3,
+          torch.randn(E, D, F, generator=g) * 0.3,
+          torch.randn(E, F, D, generator=g) * 0.3]
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (probs, xf, *ws)]
+        out = fn(*leaves)
+        out.backward(torch.linspace(-1, 1, out.numel()).reshape(out.shape))
+        return out.detach(), [t.grad for t in leaves]
+
+    want, want_g = run(lambda p, x, *w: _moe_before(p, x, *w, K, C))
+    got, got_g = run(lambda p, x, *w: B._moe_experts(
+        p, x, *w, K=K, C=C, e_first=0)[0])
+    assert torch.equal(got, want)
+    for a, b in zip(got_g, want_g):
+        assert torch.equal(a, b)
+    # two ranks' expert slices: partial sums of the output and of the
+    # probs' and tokens' gradients; each slice's weight gradients are its
+    # experts' rows of the whole's
+    parts = [run(lambda p, x, *w, lo=lo: B._moe_experts(
+        p, x, *(t[lo:lo + E // 2] for t in w), K=K, C=C, e_first=lo)[0])
+        for lo in (0, E // 2)]
+    torch.testing.assert_close(parts[0][0] + parts[1][0], want, rtol=1e-5,
+                               atol=1e-6)
+    for i in (0, 1):
+        torch.testing.assert_close(parts[0][1][i] + parts[1][1][i],
+                                   want_g[i], rtol=1e-5, atol=1e-6)
+    for i in (2, 3, 4):
+        for half, lo in zip(parts, (0, E // 2)):
+            torch.testing.assert_close(half[1][i][lo:lo + E // 2],
+                                       want_g[i][lo:lo + E // 2],
+                                       rtol=1e-5, atol=1e-6)
 
 
 def _records():

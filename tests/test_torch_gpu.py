@@ -3,8 +3,9 @@ and SSD chunk kernels against their plain versions (waterfill also in its
 fleet layout; flash also at the moe, vlm and encdec models' launch shapes),
 the simulator's main path, a fleet run, ``moe_ffn`` and reduced zamba2,
 qwen3-moe, internvl2 and whisper serves on the card against the same runs
-on the CPU, two bitwise-equal card runs of ``moe_ffn``, and a faulted and
-resumed campaign on the card, and a meshed train state saved, restored and
+on the CPU, two bitwise-equal card runs of ``moe_ffn``, a faulted and
+resumed campaign on the card, a campaign on four streams of the one card
+bit for bit one stream's, and a meshed train state saved, restored and
 replayed on a one-rank CUDA mesh. They import no JAX, so they run on a machine
 that has only PyTorch:
 
@@ -606,6 +607,49 @@ def test_faulted_campaign_on_card(tmp_path):
                              checkpoint=ck, **kw)
     assert runner.last_stats["n_dispatches"] == n_chunks - done
     np.testing.assert_array_equal(cr.metrics, clean)
+
+
+@pytest.mark.parametrize("policy", ["tcp", "appaware", "appfair", "fixed"])
+def test_campaign_on_four_streams_of_one_card(policy):
+    """``run_campaign(shard=["cuda:0"] * 4)``: four streams on the one card,
+    each with its own copy and compute stream, give the one-stream
+    campaign's metrics bit for bit; appaware launches the waterfill kernel
+    on every stream, as many launches in all as one stream. ``run`` over
+    the four keeps every trajectory bit for bit."""
+    from repro_torch.streams import FleetRunner, campaign_fleet, compile_fleet
+
+    dev = _cuda()
+    sims = compile_fleet(campaign_fleet(54, seed=0), device="cpu")
+    kw = dict(seconds=8.0, chunk_rows=16)
+    if policy == "fixed":
+        kw["x_fixed"] = [np.full(s.R.shape[0], 0.25, np.float32)
+                         for s in sims]
+    if policy == "appaware":
+        kw["solver"] = "waterfill"
+    runner = FleetRunner(device=dev)
+    ops.LAUNCHES = 0
+    one = runner.run_campaign(sims, policy, shard=False, **kw)
+    n_one = ops.LAUNCHES
+    ops.LAUNCHES = 0
+    ops.STREAM_LAUNCHES.clear()
+    four = runner.run_campaign(sims, policy, shard=["cuda:0"] * 4, **kw)
+    st = runner.last_stats
+    assert st["n_streams"] == 4 and st["n_chunks"] >= 4
+    assert st["peak_staged_rows"] <= 3 * st["chunk_rows"] * 4
+    np.testing.assert_array_equal(four.metrics, one.metrics)
+    if policy == "appaware":
+        assert ops.LAUNCHES == n_one > 0
+        per = list(ops.STREAM_LAUNCHES.values())
+        assert len(per) == 4 and min(per) > 0, per
+    else:
+        assert ops.LAUNCHES == 0
+    if policy in ("tcp", "appaware"):
+        run_kw = {k: v for k, v in kw.items() if k != "chunk_rows"}
+        a = runner.run(sims, policy, shard=["cuda:0"] * 4, **run_kw)
+        b = runner.run(sims, policy, shard=False, **run_kw)
+        for x, y in zip(a, b):
+            for f in ("sink_mb", "link_load", "latency"):
+                np.testing.assert_array_equal(getattr(x, f), getattr(y, f))
 
 
 # ---- the training path ----------------------------------------------------
