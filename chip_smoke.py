@@ -187,9 +187,10 @@ Phases, each of which makes the script exit non-zero when it fails:
     and ``plan_schedule`` on the card; then the same link problem through
     ``OnlineAllocator(solver="waterfill")`` on the card, held to the sort
     solver's rates at 2e-3 (tests/test_torch_allocator.py's tolerance for
-    that pair); collectives on both axes, exactly 508 of them, FLOPs above
+    that pair); collectives on both axes, exactly 432 of them, FLOPs above
     10.323 TFLOP, no LM kernel launched by the meta trace, at least one
-    waterfill launch;
+    waterfill launch, and a shard-to-shard redistribution on that mesh
+    recorded as one all-to-all;
 22. the dry run (``repro_torch.launch.dryrun.run_cell``) on "cuda"
     production meshes at full width and depth, into a temporary directory:
     qwen1.5-0.5b ``train_4k`` and yi-6b ``decode_32k`` on the 16x16 mesh
@@ -207,7 +208,25 @@ Phases, each of which makes the script exit non-zero when it fails:
     (``shard=["cuda:0"] * 4``); prints the streams, the waterfill launches
     per stream and scenarios/s of each; the four-stream metrics bit for bit
     the one-stream ones, four streams each launching the kernel, as many
-    launches in all as one stream's.
+    launches in all as one stream's;
+24. a real world of one rank per card (``spawn_world``, NCCL, ``cuda:{rank}``
+    for each rank; one rank on a one-card machine), the main-path run of
+    the launcher: in each rank zamba2-1.2b at full width cut to 6 of its
+    38 layers (one group, one application of the shared attention block,
+    as phase 21 cuts it), float32 weights and AdamW states, bfloat16
+    compute, phase 18's seed, schedule and batches, placed by
+    ``param_shardings`` on ``make_local_mesh()`` ((n, 1)), through
+    ``TrainDriver`` for 4 steps with async checkpoints every 2 and a
+    failure injected at step 3, which restores step 2's checkpoint and
+    replays step 2. Checks the replayed loss bit for bit the first pass's,
+    every loss finite, 2 flash and 12 SSD launches a step through
+    ``local_map`` (counts set to 0 in the rank just before the run), one
+    writer of the checkpoints; prints the world size, ms per step, peak
+    device memory and checkpoint seconds. On a machine with two or more
+    cards it then holds a (1, n) prefill and two decode steps and an
+    (n, 1) train step (float32, the same model) to the unmeshed results of
+    that machine's first card; on one card it prints that it did not try
+    them.
 
 Before its last line the script prints one JSON object describing each
 kernel, then the card's name and power limit; the last line is
@@ -672,6 +691,11 @@ def main() -> int:
     sharded = phase_shard(dev)
     lap("23 (sharded campaign)")
 
+    # ---- 24. a real world of one rank per card (the launcher's main-path
+    # run) ----------------------------------------------------------------
+    world = phase_world()
+    lap("24 (spawned world)")
+
     main = results["datacenter"]["shared"]
     kernels = [{
         "name": "waterfill",
@@ -746,6 +770,10 @@ def main() -> int:
     # phase 23's main path (counts set to 0 just before it)
     kernels[0].update({"shard_launches": sharded["launches"],
                        "shard_launches_per_stream": sharded["per_stream"]})
+    # phase 24's main path (counts set to 0 in each rank just before it)
+    for entry, name in ((kernels[1], "flash_attention"),
+                        (kernels[2], "ssd_chunk")):
+        entry["world_train_launches"] = world[name]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1902,10 +1930,10 @@ COMM_SPEC = ("demo", 4096, 8, "train")
 WATERFILL_SORT_RTOL = 2e-3
 # phase 21's record before the kernels' meta calls counted their FLOPs (on
 # the H100's machine, torch 2.11, a "cuda" mesh): FLOPs per rank; and its
-# collectives since the global norm gathers no gradient and the chunked
-# loss moves no logits (587 before)
+# collectives since the embedding gathers its rows per rank and AdamW
+# reduces each partial gradient once (587, then 508, before these)
 COMM_FLOPS_UNCOUNTED = 10.323e12
-COMM_COLLECTIVES = 508
+COMM_COLLECTIVES = 432
 # the call sites of phase 21's traffic printed, most bytes first
 COMM_SITES = 8
 
@@ -2079,6 +2107,246 @@ def phase_train_mesh(dev, ref_losses) -> dict:
                 ckpt_peak_gib=ckpt_peak / 2**30)
 
 
+# phase 24: zamba2-1.2b at full width cut to one group of 6 layers, trained
+# through TrainDriver in a spawned world; 4 steps, checkpoints every 2, a
+# failure injected at step 3
+WORLD_LAYERS = 6
+WORLD_STEPS, WORLD_CKPT_EVERY, WORLD_FAIL_AT = 4, 2, 3
+WORLD_TIMEOUT_S = 600.0
+# the multi-card comparison: float32, B 2 per rank, S 512; a 128-token
+# prompt (one SSD chunk) and two decode steps
+WORLD_CMP_S, WORLD_PROMPT = 512, 128
+WORLD_LOGITS_RTOL = 1e-5
+
+
+def _world_model(dev, dtype=None):
+    """Phase 24's model: zamba2-1.2b at full width, ``WORLD_LAYERS``
+    layers, its weights drawn on ``dev`` from phase 18's seed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.registry import get_config, get_model
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"),
+                              n_layers=WORLD_LAYERS)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    api = get_model(cfg, device=dev)
+    model = api.init(torch.Generator(device=dev).manual_seed(0),
+                     trainable=True)
+    return api, model
+
+
+def _placed(api, model, mesh, rules, trainable=True):
+    from repro_torch.launch import shardings as S
+    from repro_torch.models import lm
+
+    tree = lm.nest({n: p.detach() for n, p in model.named_parameters()})
+    return api.build(S.place_tree(tree, S.param_shardings(mesh, api, rules)),
+                     trainable=trainable)
+
+
+def world_train_rank(rank: int, root: str) -> dict:
+    """One rank of phase 24's run: the driver over the meshed state."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch import shardings as S
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.policy import sharding_policy
+    from repro_torch.train.driver import DriverConfig, TrainDriver
+    from repro_torch.train.optim import AdamW, warmup_cosine
+
+    dev = torch.device("cuda", rank)
+    api, model = _world_model(dev)
+    mesh = make_local_mesh(1, "cuda")
+    opt = AdamW(lr=warmup_cosine(3e-4, warmup=2, total=TRAIN_STEPS))
+    pipe = SyntheticLM(vocab=api.cfg.vocab, seq_len=TRAIN_S,
+                       global_batch=TRAIN_B * dist.get_world_size(),
+                       structured=True)
+    with sharding_policy(mesh, S.TRAIN_RULES):
+        params = _placed(api, model, mesh, S.TRAIN_RULES)
+        del model
+        drv = TrainDriver(api, opt, pipe, DriverConfig(
+            steps=WORLD_STEPS, ckpt_every=WORLD_CKPT_EVERY, ckpt_dir=root),
+            failure_at={WORLD_FAIL_AT})
+        state = opt.init(params)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fa.LAUNCHES = ssd.LAUNCHES = 0
+        t0 = time.perf_counter()
+        drv.run(params, state)
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": fa.LAUNCHES, "ssd_chunk": ssd.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated(dev)
+    return dict(world=dist.get_world_size(), mesh=tuple(mesh.shape),
+                steps=[m["step"] for m in drv.metrics],
+                losses=[m["loss"] for m in drv.metrics],
+                walls=[m["wall_s"] for m in drv.metrics], events=drv.events,
+                launches=launches, peak=peak, wall=wall, saves=drv.ckpt.saves,
+                n_apps=api.cfg.n_layers // api.cfg.hybrid_attn_every,
+                n_layers=api.cfg.n_layers)
+
+
+def world_compare_rank(rank: int) -> dict | None:
+    """One rank of phase 24's multi-card check, in float32: an (n, 1) train
+    step and a (1, n) prefill and two decode steps, each held to the
+    unmeshed run of the same model on this rank's card. Rank 0 returns
+    the worst relative differences."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch import shardings as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.policy import sharding_policy
+    from repro_torch.train.step import make_loss_fn
+
+    n = dist.get_world_size()
+    dev = torch.device("cuda", rank)
+    api, model = _world_model(dev, torch.float32)
+    rng = np.random.default_rng(24)
+    toks = torch.as_tensor(rng.integers(0, api.cfg.vocab,
+                                        (2 * n, WORLD_CMP_S + 1)),
+                           dtype=torch.long, device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss_fn = make_loss_fn(api)
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+    def step(m, b):
+        loss, _ = loss_fn(m, b)
+        if isinstance(loss, DTensor):
+            loss = loss.redistribute(placements=[Replicate()] * 2)
+        return loss, torch.autograd.grad(loss, list(m.parameters()))
+
+    def serve(m, place):
+        b = {"tokens": place(toks[:, :WORLD_PROMPT])}
+        logits, cache = api.prefill(m, b, WORLD_PROMPT + 4)
+        out = [whole(logits)]
+        for pos in (WORLD_PROMPT, WORLD_PROMPT + 1):
+            t = place(torch.full((2 * n, 1), pos, dtype=torch.long,
+                                 device=dev))
+            logits, cache = api.decode(m, cache, t, pos)
+            out.append(whole(logits))
+        return out
+
+    loss0, grads0 = step(model, batch)
+    want = serve(model, lambda t: t)
+    worst = {}
+    mesh = make_mesh((n, 1), ("data", "model"), "cuda")
+    with sharding_policy(mesh, S.TRAIN_RULES):
+        meshed = _placed(api, model, mesh, S.TRAIN_RULES)
+        bsh = S.batch_shardings(mesh, batch)
+        loss1, grads1 = step(meshed, {k: S.place(v, bsh[k])
+                                      for k, v in batch.items()})
+        worst["train_loss"] = abs(float(whole(loss1))
+                                  / float(loss0.detach()) - 1)
+        # each leaf against its largest gradient, floored at float32's
+        # epsilon times the model's largest (a leaf whose exact gradient is
+        # 0 holds rounding noise), as the CPU parity tests hold them
+        floor = float(np.finfo(np.float32).eps) * max(
+            float(g.abs().max()) for g in grads0) / TRAIN_GRAD_RTOL
+        worst["train_grads"] = max(
+            float((whole(g1) - g0).abs().max())
+            / max(float(g0.abs().max()), floor)
+            for g0, g1 in zip(grads0, grads1))
+    del meshed, grads1
+    mesh = make_mesh((1, n), ("data", "model"), "cuda")
+    with sharding_policy(mesh, S.SERVE_RULES):
+        meshed = _placed(api, model, mesh, S.SERVE_RULES, trainable=False)
+
+        def place(t):
+            return S.place(t, S.batch_shardings(mesh, {"x": t})["x"])
+        got = serve(meshed, place)
+        worst["decode_logits"] = max(
+            float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want))
+    return worst if rank == 0 else None
+
+
+def phase_world() -> dict:
+    """Phase 24 (see the module docstring): ``spawn_world`` with one rank
+    per card. Returns rank 0's kernel launches in its driver run."""
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.mesh import spawn_world
+
+    n = torch.cuda.device_count()
+    root = ROOT / "build" / "chip_smoke_world"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = spawn_world(n, world_train_rank, str(root), device_type="cuda",
+                        timeout_s=WORLD_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    r = ranks[0]
+    per_step = {k: v / len(r["steps"]) for k, v in r["launches"].items()}
+    want = {"flash_attention": 2 * r["n_apps"], "ssd_chunk": 2 * r["n_layers"]}
+    steady = r["walls"][1:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    first = r["losses"][r["steps"].index(WORLD_FAIL_AT - 1)]
+    replay = r["losses"][len(r["steps"]) - 1 - r["steps"][::-1].index(
+        WORLD_FAIL_AT - 1)]
+    saves = "; ".join(f"step {s['step']}: {s['bytes'] / 1e9:.2f} GB, "
+                      f"snapshot {s['snapshot_s']:.2f} s, write "
+                      f"{s['write_s']:.2f} s" for s in r["saves"])
+    print(f"world: {r['world']} rank(s) (NCCL, spawn), mesh {r['mesh']}; "
+          f"zamba2-1.2b at full width, {r['n_layers']} layers, "
+          f"{TRAIN_B * r['world']} x {TRAIN_S} tokens a step; steps "
+          f"{r['steps']}, events {r['events']}; losses {r['losses']}; "
+          f"{step_ms:.1f} ms per step (steps after the first, as the "
+          f"driver times them); peak device memory "
+          f"{r['peak'] / 2**30:.3f} GiB on rank 0; driver run "
+          f"{r['wall']:.2f} s, the whole spawned world {spawn_s:.2f} s; "
+          f"launches per step flash {per_step['flash_attention']:g}, "
+          f"ssd_chunk {per_step['ssd_chunk']:g} (expected "
+          f"{want['flash_attention']} and {want['ssd_chunk']}); "
+          f"checkpoints written by rank 0: {saves}")
+    check(all(math.isfinite(x) for q in ranks for x in q["losses"]),
+          "world: finite losses")
+    check(all(q["losses"] == r["losses"] for q in ranks),
+          "world: every rank reports the same losses")
+    check(r["steps"] == [0, 1, 2, 2, 3]
+          and (WORLD_FAIL_AT - 1, "restart-from-ckpt") in r["events"],
+          f"world: the failure at step {WORLD_FAIL_AT} restored step "
+          f"{WORLD_FAIL_AT - 1}: {r['steps']}, {r['events']}")
+    check(replay == first, f"world: the replayed loss {replay} is not bit "
+                           f"for bit the first pass's {first}")
+    for name, k in want.items():
+        check(r["launches"][name] == k * len(r["steps"]),
+              f"world: {name} launches {r['launches'][name]} != {k} x "
+              f"{len(r['steps'])}")
+    check([s["step"] for s in r["saves"]] == [2, 4]
+          and all(not q["saves"] for q in ranks[1:]),
+          "world: rank 0 alone wrote the checkpoints of steps 2 and 4")
+    if n < 2:
+        print("world: one card: the (1, n) decode and (n, 1) step on "
+              "several cards were not tried")
+        return r["launches"]
+    worst = spawn_world(n, world_compare_rank, device_type="cuda",
+                        timeout_s=WORLD_TIMEOUT_S)[0]
+    print(f"world: {n} cards, float32, against the unmeshed runs on each "
+          f"card: ({n}, 1) train step loss {worst['train_loss']:.3e} "
+          f"relative, gradients {worst['train_grads']:.3e} of max|g|; "
+          f"(1, {n}) prefill and decode logits {worst['decode_logits']:.3e}"
+          f" of max|logits|")
+    check(worst["train_loss"] <= TRAIN_LOSS_RTOL
+          and worst["train_grads"] <= TRAIN_GRAD_RTOL
+          and worst["decode_logits"] <= WORLD_LOGITS_RTOL,
+          f"world: {n} cards against one: {worst}")
+    return r["launches"]
+
+
 def phase_comm_schedule(dev) -> dict:
     """The comm-schedule path at full width: zamba2-1.2b (d_model 2048)
     cut to ``COMM_LAYERS`` layers, one train step traced on meta tensors
@@ -2088,13 +2356,16 @@ def phase_comm_schedule(dev) -> dict:
     and turned into flows, ``plan_schedule`` on the card (sort solver);
     then the same link problem through ``OnlineAllocator(solver=
     "waterfill")`` on the card, held to the sort solver's rates at
-    ``WATERFILL_SORT_RTOL``. Checks collectives on both mesh axes,
-    all-to-alls among them, and no LM kernel launch (on meta the wrappers
-    are shape functions)."""
+    ``WATERFILL_SORT_RTOL``. Checks collectives on both mesh axes, the
+    record's all-to-all (DTensor's shard-to-shard redistribution, which
+    the step itself no longer issues), and no LM kernel launch (on meta
+    the wrappers are shape functions)."""
     import dataclasses
 
     import numpy as np
     import torch
+
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
     from repro_torch.core.allocator import OnlineAllocator
     from repro_torch.core.scheduler import (extract_flows, flow_state,
@@ -2116,6 +2387,14 @@ def phase_comm_schedule(dev) -> dict:
         mesh = make_mesh(*COMM_MESH, dev.type)
         records, flops = comm_stats.trace_train_step(api, mesh, spec)
         axes = mesh_axes(mesh)
+        # the record names DTensor's shard-to-shard redistribution on a
+        # "cuda" mesh an all-to-all (the step itself issues none)
+        x = DTensor.from_local(
+            torch.empty((8, 2048, 2048), dtype=torch.bfloat16, device="meta"),
+            mesh, [Replicate(), Shard(1)], run_check=False)
+        with comm_stats.record(mesh) as moved:
+            x.redistribute(mesh, [Replicate(), Shard(0)])
+        a2a = [c.kind for c in moved]
     trace_s = time.perf_counter() - t0
     check((fa.LAUNCHES, ssd.LAUNCHES) == before,
           "comm schedule: the meta trace launched an LM kernel")
@@ -2136,8 +2415,9 @@ def phase_comm_schedule(dev) -> dict:
           f"(kind, axis) {counts}")
     check({c.axis for c in records} >= {"data", "model"},
           f"comm schedule: collectives on {sorted({str(c.axis) for c in records})}")
-    check("all-to-all" in kinds, "comm schedule: no all-to-all recorded on "
-          "the cuda mesh (DTensor's shard-to-shard redistribution)")
+    check(a2a == ["all-to-all"], f"comm schedule: a shard-to-shard "
+          f"redistribution on the cuda mesh recorded as {a2a}, not one "
+          f"all-to-all")
     check(flops > COMM_FLOPS_UNCOUNTED and records.kernel_flops > 0,
           f"comm schedule: {flops / 1e12:.3f} TFLOP per rank, not above "
           f"{COMM_FLOPS_UNCOUNTED / 1e12:.3f} with the kernels counted")

@@ -239,12 +239,15 @@ def _on_mesh(x, dt, A, B, C, chunk: int):
     bc_pl = unsplit(x_pl, 2)
     h_pl = tuple(Shard(1) if p == Shard(2) else p for p in x_pl)
     # a rank that holds some of the heads holds a partial sum of B's and
-    # C's gradients
+    # C's gradients, and one that holds some of the batch rows a partial
+    # sum of A's
     bc_grad = tuple(Partial() if p == Shard(2) else p for p in x_pl)
+    a_grad = tuple(Partial() if p == Shard(0) else q
+                   for p, q in zip(x_pl, a_pl))
     return local_map(
         lambda *t: ssd_scan(*t, chunk=chunk), out_placements=(x_pl, h_pl),
         in_placements=(x_pl, x_pl, a_pl, bc_pl, bc_pl),
-        in_grad_placements=(x_pl, x_pl, a_pl, bc_grad, bc_grad),
+        in_grad_placements=(x_pl, x_pl, a_grad, bc_grad, bc_grad),
         device_mesh=mesh, redistribute_inputs=True)(x, dt, A, B, C)
 
 

@@ -36,7 +36,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.kernels.local import as_dtensor, shard_index, unsplit
+from repro_torch.kernels.local import as_dtensor, kept, shard_index, unsplit
 from repro_torch.sharding.policy import placements_on, shard_as, shard_count
 
 NEG_INF = -1e30
@@ -156,18 +156,51 @@ def tied(w):
     return _GradInLayout.apply(w) if isinstance(w, DTensor) else w
 
 
+def _embed_local(w, tokens, first: int):
+    """Rows ``tokens`` of the table shard ``w`` that holds rows first..
+    first + len(w) - 1; zero rows for tokens outside it."""
+    idx = tokens.long() - first
+    ok = (idx >= 0) & (idx < w.shape[0])
+    rows = F.embedding(torch.where(ok, idx, 0), w)
+    return rows * ok[..., None].to(rows.dtype)
+
+
 def embed_rows(w, tokens, dtype):
     """``w.to(dtype)[tokens]``, the rows of an embedding table gathered
     from the table cast to ``dtype``, so that the table's gradient is a
-    ``dtype`` gradient as in the JAX package. Through ``F.embedding``: on a
-    mesh DTensor shards its backward (that of indexing, ``index_put``, it
-    does not in torch 2.11), and a meshed and an unmeshed step take the
-    same backward. Rows of a vocab-sharded DTensor table come back as a
-    masked partial sum, which is reduced at once (its mask serves one
-    reduction only)."""
-    out = F.embedding(tokens, w.to(dtype))
-    if not isinstance(out, DTensor):
-        return out
+    ``dtype`` gradient as in the JAX package. Through ``F.embedding``: the
+    backward of indexing (``index_put``) cannot be sharded by DTensor
+    (torch 2.11).
+
+    On a mesh each rank runs ``F.embedding`` on its own shards
+    (``local_map``): its tokens (their batch and sequence splits kept,
+    replicated over the mesh dims that split the vocab) against its shard
+    of the table's vocab (the embed dim gathered, as FSDP gathers a
+    weight). A token outside the shard gives a zero row, and one
+    all-reduce over the vocab's mesh dims sums the rows. The table's
+    gradient comes back as each rank's partial sum over its own tokens,
+    which DTensor reduces into the table's placements. (DTensor's own
+    sharded embedding gathers the batch before it reduces its masked
+    partial, whose mask then meets all rows: an IndexError on a 2-D mesh.)
+    """
+    w = w.to(dtype)
+    if not isinstance(w, DTensor) and not isinstance(tokens, DTensor):
+        return F.embedding(tokens, w)
+    mesh = next(t for t in (w, tokens) if isinstance(t, DTensor)).device_mesh
+    w, tokens = as_dtensor(w, mesh), as_dtensor(tokens, mesh)
+    vocab = [p == Shard(0) for p in w.placements]
+    w_pl = tuple(Shard(0) if v else Replicate() for v in vocab)
+    tok_pl = tuple(Replicate() if v else p
+                   for v, p in zip(vocab, kept(tokens.placements, (0, 1))))
+    out_pl = tuple(Partial() if v else p for v, p in zip(vocab, tok_pl))
+    w_grad = tuple(Shard(0) if v else Partial() if isinstance(p, Shard)
+                   else Replicate() for v, p in zip(vocab, tok_pl))
+    shard, n = shard_index(mesh, w_pl, 0)
+    out = local_map(
+        functools.partial(_embed_local, first=shard * (w.shape[0] // n)),
+        out_placements=list(out_pl), in_placements=(w_pl, tok_pl),
+        in_grad_placements=(w_grad, tok_pl), device_mesh=mesh,
+        redistribute_inputs=True)(w, tokens)
     return out.redistribute(placements=[
         Replicate() if p.is_partial() else p for p in out.placements])
 
@@ -441,6 +474,30 @@ def attention(p, x, cfg, positions, mask=None):
     return out, (k, v)
 
 
+def write_seq(cache, start: int, new) -> None:
+    """``cache[:, start:start + n] = new`` in place: ``new`` [B,n,...] into
+    positions start.. start+n-1 of a [B,T,...] cache buffer (a KV ring
+    buffer's slot, a prefill's prompt). On a mesh each rank writes the part
+    of ``new`` that falls in its own shard of the buffer into its local
+    shard, ``new`` first put in the buffer's placements with its positions
+    whole. (A write through DTensor's indexing goes into a copy that
+    DTensor gathers when the buffer's positions are split, "kv_seq" over
+    "model", and is lost.)"""
+    n = new.shape[1]
+    if not isinstance(cache, DTensor):
+        cache[:, start:start + n] = new.to(cache.dtype)
+        return
+    mesh = cache.device_mesh
+    new = as_dtensor(new, mesh).to(cache.dtype)
+    new = new.redistribute(mesh, unsplit(cache.placements, 1)).to_local()
+    shard, count = shard_index(mesh, cache.placements, 1)
+    size = cache.shape[1] // count
+    lo, hi = max(start, shard * size), min(start + n, (shard + 1) * size)
+    if lo < hi:
+        cache.to_local()[:, lo - shard * size:hi - shard * size] = \
+            new[:, lo - start:hi - start]
+
+
 def attention_decode(p, x, cfg, cache_k, cache_v, pos: int):
     """Single-token decode against a KV cache. x: [B,1,D]; cache_k/v:
     [B,T,K,hd] (ring buffer, absolute positions), written at slot
@@ -451,8 +508,8 @@ def attention_decode(p, x, cfg, cache_k, cache_v, pos: int):
                                cfg.rope_theta, positions)
     T = cache_k.shape[1]
     slot = pos % T
-    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    write_seq(cache_k, slot, k_new)
+    write_seq(cache_v, slot, v_new)
     cache_k = shard_as(cache_k, "batch", "kv_seq", "kv_heads", None)
     cache_v = shard_as(cache_v, "batch", "kv_seq", "kv_heads", None)
     valid = (torch.arange(T, device=x.device) <= pos)[None, None, None, None]

@@ -398,8 +398,8 @@ def _attn_block_decode(cfg, p, x, cache_k, cache_v, pos: int):
     q, k_new = _maybe_qk_norm(cfg, p["attn"], q, k_new)
     T = cache_k.shape[1]
     slot = pos % T
-    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    B.write_seq(cache_k, slot, k_new)
+    B.write_seq(cache_v, slot, v_new)
     valid = (torch.arange(T, device=x.device) <= pos)[None, None, None, None]
     o = B.gqa_attend(q, cache_k.to(x.dtype), cache_v.to(x.dtype), valid)
     return x + B.out_proj(o, p["attn"]["wo"]), (cache_k, cache_v)
@@ -603,8 +603,8 @@ def prefill(cfg, params: LM, tokens, max_len: int, vis_embeds=None):
     def run_dense(p, c, i):
         nonlocal x
         x, (k, v), _ = dense_layer(cfg, p, x, positions)
-        c["k"][i, :, :S] = k
-        c["v"][i, :, :S] = v
+        B.write_seq(c["k"][i], 0, k)
+        B.write_seq(c["v"][i], 0, v)
 
     if cfg.family == "ssm":
         run_ssm(params.layers, cache)

@@ -244,10 +244,10 @@ def prefill(cfg, params: Whisper, tokens, frames, max_len: int):
                        device=y.device, zeros=cache_zeros(y))
     for i, p in enumerate(params.dec_layers):
         y, (k, v), (xk, xv) = _dec_layer(cfg, p, y, enc_out)
-        cache["k"][i, :, :St] = k
-        cache["v"][i, :, :St] = v
-        cache["xk"][i] = xk
-        cache["xv"][i] = xv
+        B.write_seq(cache["k"][i], 0, k)
+        B.write_seq(cache["v"][i], 0, v)
+        B.write_seq(cache["xk"][i], 0, xk)
+        B.write_seq(cache["xv"][i], 0, xv)
     return _logits(cfg, params, y[:, -1:]), cache
 
 
@@ -269,8 +269,8 @@ def decode_step(cfg, params: Whisper, cache: dict, tokens, pos):
         h = _apply_norm(cfg, p["ln1"], y)
         q, k_new, v_new = B.qkv_proj(p["attn"], h, cfg.n_heads,
                                      cfg.n_kv_heads, None, None)
-        k[:, slot] = k_new[:, 0].to(k.dtype)
-        v[:, slot] = v_new[:, 0].to(v.dtype)
+        B.write_seq(k, slot, k_new)
+        B.write_seq(v, slot, v_new)
         o = B.gqa_attend(q, k.to(dt), v.to(dt), valid)
         y = y + B.out_proj(o, p["attn"]["wo"])
         h = _apply_norm(cfg, p["ln_x"], y)

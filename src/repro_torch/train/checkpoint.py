@@ -18,11 +18,16 @@ Guarantees:
     CUDA card unless the caller asks for another);
   * retention — the newest ``keep`` checkpoints are kept.
 
-Arrays are written whole, on one host, as the JAX package writes them. A
-DTensor leaf (a state on a ``DeviceMesh``) is gathered whole by
-``full_tensor()`` before its host copy: a collective, which every rank of
-the mesh takes, in ``save`` and in ``save_async``'s synchronous snapshot,
-before any writer thread starts.
+Arrays are written whole, on one host, by one writer, as the JAX package
+writes them. A DTensor leaf (a state on a ``DeviceMesh``) is gathered whole
+by ``full_tensor()`` before its host copy: a collective, which every rank
+of the mesh takes, in ``save`` and in ``save_async``'s synchronous
+snapshot, before any writer thread starts. In a world of more than one
+rank only rank 0 writes, renames and prunes old checkpoints, and every
+rank waits at a barrier before ``save`` returns (``save_async``: before
+``wait`` returns) and before ``restore`` reads, so that no rank reads a
+checkpoint before it is whole. Without a world, or in a world of one rank,
+nothing waits.
 
 A state is a nest of dicts, lists, tuples, NamedTuples (``AdamState``),
 models (``nn.Module``: their parameters by name) and tensors; keys join the
@@ -44,6 +49,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor, distribute_tensor
 
@@ -133,9 +139,11 @@ def _place(a: np.ndarray, like, sh, device) -> torch.Tensor:
     dtype = like.dtype if isinstance(like, torch.Tensor) else t.dtype
     if sh is None:
         return t.to(device=device, dtype=dtype)
+    # every rank read the same verified file: each takes its own shard of
+    # its copy, and nothing is sent
     mesh = sh.mesh
     return distribute_tensor(t.to(device=mesh.device_type, dtype=dtype),
-                             mesh, sh.placements)
+                             mesh, sh.placements, src_data_rank=None)
 
 
 def _unflatten(like, arrays: dict, device, shardings=None, prefix: str = ""):
@@ -158,15 +166,38 @@ def _unflatten(like, arrays: dict, device, shardings=None, prefix: str = ""):
     return type(like)(values)
 
 
+def _ranks() -> int:
+    """The open world's size (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _barrier() -> None:
+    """Every rank of the open world waits for the others (on the card's
+    NCCL, on this rank's card)."""
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
 class Checkpointer:
     def __init__(self, directory: str | os.PathLike, keep: int = 3):
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: threading.Thread | None = None
-        # one record per save: step, bytes, snapshot_s (the host copy),
-        # write_s (npz, manifest and rename)
+        # a save_async whose barrier every rank has yet to take (worlds of
+        # more than one rank)
+        self._pending = False
+        # one record per save this process wrote: step, bytes, snapshot_s
+        # (the host copy), write_s (npz, manifest and rename)
         self.saves: list[dict] = []
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes: rank 0 of the open world, or the
+        only process."""
+        return not dist.is_initialized() or dist.get_rank() == 0
 
     # ------------------------------------------------------------- save
     def save(self, step: int, state: Any, blocking: bool = True) -> None:
@@ -174,20 +205,29 @@ class Checkpointer:
         flat = _flatten(state)  # host copy (synchronous snapshot)
         snap = time.perf_counter() - t0
         if blocking:
-            self._write(step, flat, snap)
+            if self.writer:
+                self._write(step, flat, snap)
+            if _ranks() > 1:
+                _barrier()
         else:
             self.wait()
-            self._thread = threading.Thread(
-                target=self._write, args=(step, flat, snap), daemon=True)
-            self._thread.start()
+            if self.writer:
+                self._thread = threading.Thread(
+                    target=self._write, args=(step, flat, snap), daemon=True)
+                self._thread.start()
+            self._pending = _ranks() > 1
 
     def save_async(self, step: int, state: Any) -> None:
         self.save(step, state, blocking=False)
 
     def wait(self) -> None:
+        """Until the last ``save_async`` is written (on every rank)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            _barrier()
 
     def _write(self, step: int, flat: dict[str, np.ndarray],
                snapshot_s: float) -> None:
@@ -242,6 +282,8 @@ class Checkpointer:
         # restore does not wait, so a failure just after a checkpoint step
         # restores the one before, or finds none)
         self.wait()
+        if _ranks() > 1:
+            _barrier()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")

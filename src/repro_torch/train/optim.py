@@ -112,6 +112,20 @@ def _mesh_norms(leaves, mesh) -> list[torch.Tensor]:
     return norms
 
 
+def _reduced(g):
+    """A gradient with its pending partial sums reduced (a DTensor that is
+    partial over some mesh dims: a leaf whose uses split its gradient),
+    ``g`` itself otherwise. The moments then hold values, as the
+    reference's do, and not a sum that each rank keeps a share of: a
+    restored state, whose shares are not the ones the ranks kept, would
+    round the next sums otherwise."""
+    if not isinstance(g, DTensor) or not any(
+            isinstance(q, Partial) for q in g.placements):
+        return g
+    return g.redistribute(g.device_mesh, [
+        Replicate() if isinstance(q, Partial) else q for q in g.placements])
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     lr: Callable | float = 3e-4
@@ -144,7 +158,7 @@ class AdamW:
         norm of ``grads``)."""
         names = list(state.m)
         p = named(params)
-        g = [grads[n] for n in names]
+        g = [_reduced(grads[n]) for n in names]
         step = state.step + 1
         gn = global_norm(g)
         if self.clip_norm is not None:

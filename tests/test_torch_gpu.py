@@ -1117,3 +1117,139 @@ def test_meshed_state_checkpoint_restores_and_replays_on_card(tmp_path):
             p2, s2 = drv.reshard_to(p1, s1, psh, osh)
             for k, v in leaves(p2, s2).items():
                 assert torch.equal(v, want[k]), k
+
+
+# ---- real worlds of several cards ------------------------------------------
+def _n_cards(n_min: int) -> int:
+    _cuda()
+    n = torch.cuda.device_count()
+    if n < n_min:
+        pytest.skip(f"needs {n_min} cards, this machine has {n}")
+    return n
+
+
+def world_rank_against_unmeshed(rank: int) -> dict:
+    """One rank of a ``spawn_world`` of one rank per card: a reduced zamba2
+    (float32, the kernels on the card) on an (n, 1) mesh (a train step's
+    loss and gradients) and a (1, n) mesh (a prefill and two decode
+    steps), each against the unmeshed run on this rank's card. Returns the
+    worst relative differences and the meshed runs' kernel launches."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch import shardings as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.sharding.policy import sharding_policy
+    from repro_torch.train.step import make_loss_fn
+    import torch.distributed as dist
+
+    n = dist.get_world_size()
+    dev = torch.device("cuda", rank)
+    cfg = get_config("zamba2-1.2b").reduced(
+        n_layers=2, hybrid_attn_every=2, ssd_chunk=64, d_model=256,
+        n_heads=4, n_kv_heads=4)
+    api = get_model(cfg, device=dev)
+    model = api.init(torch.Generator(device=dev).manual_seed(0),
+                     trainable=True)
+    tree = lm.nest({k: p.detach() for k, p in model.named_parameters()})
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2 * n, 129)), dtype=torch.long, device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss_fn = make_loss_fn(api)
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+    def step(m, b):
+        loss, _ = loss_fn(m, b)
+        if isinstance(loss, DTensor):
+            loss = loss.redistribute(placements=[Replicate()] * 2)
+        return loss, torch.autograd.grad(loss, list(m.parameters()))
+
+    def serve(m, place):
+        # a prompt of one SSD chunk
+        logits, cache = api.prefill(m, {"tokens": place(toks[:, :64])}, 68)
+        out = [whole(logits)]
+        for pos in (64, 65):
+            logits, cache = api.decode(m, cache, place(torch.full(
+                (2 * n, 1), pos, dtype=torch.long, device=dev)), pos)
+            out.append(whole(logits))
+        return out
+
+    def placed(mesh, rules, trainable):
+        return api.build(S.place_tree(tree, S.param_shardings(
+            mesh, api, rules)), trainable=trainable)
+
+    def place_on(mesh):
+        return lambda t: S.place(t, S.batch_shardings(mesh, {"x": t})["x"])
+
+    loss0, grads0 = step(model, batch)
+    want = serve(model, lambda t: t)
+    gmax = max(float(g.abs().max()) for g in grads0)
+    floor = float(np.finfo(np.float32).eps) * gmax / 1e-4
+    fa.LAUNCHES = ssd.LAUNCHES = 0
+    mesh = make_mesh((n, 1), ("data", "model"), "cuda")
+    with sharding_policy(mesh, S.TRAIN_RULES):
+        loss1, grads1 = step(placed(mesh, S.TRAIN_RULES, True),
+                             {k: place_on(mesh)(v) for k, v in batch.items()})
+        out = {"loss": abs(float(whole(loss1)) / float(loss0.detach()) - 1),
+               "grads": max(float((whole(g1) - g0).abs().max())
+                            / max(float(g0.abs().max()), floor)
+                            for g0, g1 in zip(grads0, grads1))}
+    mesh = make_mesh((1, n), ("data", "model"), "cuda")
+    with sharding_policy(mesh, S.SERVE_RULES):
+        got = serve(placed(mesh, S.SERVE_RULES, False), place_on(mesh))
+    out["logits"] = max(float((g - w).abs().max() / w.abs().max())
+                        for g, w in zip(got, want))
+    out["launches"] = (fa.LAUNCHES, ssd.LAUNCHES)
+    return out
+
+
+def test_spawn_world_on_every_card():
+    """``spawn_world`` over NCCL, one rank per card: on every rank an
+    (n, 1) train step (loss 1e-5 relative, gradients 1e-4·max|g_leaf|) and
+    a (1, n) prefill and two decode steps (1e-5·max|logits|) of a reduced
+    zamba2 equal the unmeshed runs on its card, the kernels reached
+    through ``local_map``."""
+    from repro_torch.launch.mesh import spawn_world
+
+    n = _n_cards(2)
+    for r, out in enumerate(spawn_world(n, world_rank_against_unmeshed,
+                                        device_type="cuda", timeout_s=600)):
+        assert out["loss"] <= 1e-5 and out["grads"] <= 1e-4, (r, out)
+        assert out["logits"] <= 1e-5, (r, out)
+        assert min(out["launches"]) > 0, (r, out)
+
+
+@pytest.mark.parametrize("policy", ["tcp", "appaware", "appfair", "fixed"])
+def test_all_devices_used(policy):
+    """The mirror of ``tests/test_multidevice.py::test_all_devices_used``:
+    ``run_campaign(shard=True)`` on four cards streams chunks through
+    every card (four streams, at least four chunks, copies timed), and its
+    metrics are the one-card campaign's bit for bit; appaware launches the
+    waterfill kernel on every card."""
+    from repro_torch.streams import FleetRunner, campaign_fleet, compile_fleet
+
+    n = _n_cards(4)
+    sims = compile_fleet(campaign_fleet(54, seed=0), device="cpu")
+    kw = dict(seconds=8.0, chunk_rows=8)
+    if policy == "fixed":
+        kw["x_fixed"] = [np.full(s.R.shape[0], 0.25, np.float32)
+                         for s in sims]
+    if policy == "appaware":
+        kw["solver"] = "waterfill"
+    runner = FleetRunner(device="cuda")
+    one = runner.run_campaign(sims, policy, shard=False, **kw)
+    ops.STREAM_LAUNCHES.clear()
+    every = runner.run_campaign(sims, policy, shard=True, **kw)
+    st = runner.last_stats
+    assert st["n_streams"] == n and st["n_chunks"] >= n, st
+    assert sorted(st["devices"]) == [f"cuda:{i}" for i in range(n)], st
+    assert st["transfer_s"] > 0.0
+    np.testing.assert_array_equal(every.metrics, one.metrics)
+    if policy == "appaware":
+        cards = {key[0] for key in ops.STREAM_LAUNCHES}
+        assert len(cards) == n, ops.STREAM_LAUNCHES
