@@ -98,6 +98,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.tcp import maxmin_fused
 from repro_torch.device import resolve_device
 from repro_torch.net.topology import LinkKind
@@ -1074,7 +1075,32 @@ class FleetRunner:
         Chunking, retries, bisection, quarantine and the checkpoint's
         fingerprint do not depend on the device count, so a campaign's
         metric rows are the same bits on any number of streams, and a
-        checkpoint written with one stream resumes a run with four."""
+        checkpoint written with one stream resumes a run with four.
+
+        The call records host spans (:mod:`repro_torch.tracing`) while
+        recording is on: ``campaign``; ``plan``; per chunk ``stage``,
+        ``transfer`` (on the copy worker), ``transfer_wait``, ``dispatch``
+        (the tick loop's spans inside it) and ``collect``; ``recover``.
+        ``last_stats``' ``stage_s``, ``transfer_s``, ``transfer_wait_s``,
+        ``dispatch_s`` and ``block_s`` are the sums of those spans' own
+        clock readings, whether recording is on or off; ``n_ticks`` and
+        ``n_updates`` count the bucket ticks and controller updates the tick
+        loops ran, retries included."""
+        with tracing.timed("campaign", scenarios=len(sims)) as whole:
+            return self._campaign(
+                whole, sims, policy, seconds, dt, upd_every, x_fixed, alpha,
+                n_groups, qcap, solver, shard, t_event, chunk_rows,
+                retain_trajectories, faults, max_retries, retry_backoff_s,
+                retry_backoff_cap_s, transfer_timeout_s, checkpoint,
+                finite_check)
+
+    def _campaign(self, whole, sims, policy, seconds, dt, upd_every, x_fixed,
+                  alpha, n_groups, qcap, solver, shard, t_event, chunk_rows,
+                  retain_trajectories, faults, max_retries, retry_backoff_s,
+                  retry_backoff_cap_s, transfer_timeout_s, checkpoint,
+                  finite_check) -> CampaignResult:
+        """:meth:`run_campaign`'s body, inside its ``campaign`` span
+        ``whole``, which it stops to read the wall time."""
         if not sims:
             raise ValueError("empty campaign")
         auto_chunk = chunk_rows == "auto"
@@ -1096,24 +1122,24 @@ class FleetRunner:
         upd_every = resolve_upd_every(policy, dt, upd_every)
         dev = self.device
         cuda = dev.type == "cuda"
-        t_wall0 = time.perf_counter()
-        calib = calibrate_backend(dev)
-        plan = self.plan(sims, policy)
-        # one padded row count per bucket, chunks balanced within it:
-        # ceil(members / target) near-equal chunks sharing one quantized
-        # row count, so inert waste is bounded by the quantum
-        jobs: list[tuple[int, list[int]]] = []  # (bucket index, member idxs)
-        cap_rows: list[int] = []
-        target_rows: list[int] = []
-        for bi, (idxs, shape) in enumerate(plan):
-            target = (_auto_chunk_rows(shape, policy, n_ticks, calib)
-                      if auto_chunk else int(chunk_rows))
-            target_rows.append(target)
-            n_chunks_b = -(-len(idxs) // max(target, 1))
-            per = -(-len(idxs) // n_chunks_b)
-            cap_rows.append(_round_rows(per, 1))
-            jobs.extend((bi, idxs[lo:lo + per])
-                        for lo in range(0, len(idxs), per))
+        with tracing.span("plan"):
+            calib = calibrate_backend(dev)
+            plan = self.plan(sims, policy)
+            # one padded row count per bucket, chunks balanced within it:
+            # ceil(members / target) near-equal chunks sharing one quantized
+            # row count, so inert waste is bounded by the quantum
+            jobs: list[tuple[int, list[int]]] = []  # (bucket, member idxs)
+            cap_rows: list[int] = []
+            target_rows: list[int] = []
+            for bi, (idxs, shape) in enumerate(plan):
+                target = (_auto_chunk_rows(shape, policy, n_ticks, calib)
+                          if auto_chunk else int(chunk_rows))
+                target_rows.append(target)
+                n_chunks_b = -(-len(idxs) // max(target, 1))
+                per = -(-len(idxs) // n_chunks_b)
+                cap_rows.append(_round_rows(per, 1))
+                jobs.extend((bi, idxs[lo:lo + per])
+                            for lo in range(0, len(idxs), per))
         base_key = (policy, n_ticks, dt, upd_every, alpha, n_groups, solver,
                     1, x_fixed is not None, float(t_event))
         # the chunk stream round-robin over the devices: chunk j on stream
@@ -1137,12 +1163,18 @@ class FleetRunner:
             stack.enter_context(torch.cuda.stream(compute_streams[s]))
             return stack
 
+        ticks_run = updates_run = 0
+
         def compute(bi, pack, xf, enf):
-            return _run_bucket(
+            nonlocal ticks_run, updates_run
+            outs = _run_bucket(
                 pack, plan[bi][1].n_apps, policy, n_ticks, dt, upd_every,
                 x_fixed=xf, alpha=alpha, n_groups=n_groups, qcap=qcap,
                 solver=solver, enforce=enf, with_metrics=True,
                 t_event=float(t_event))
+            ticks_run += n_ticks
+            updates_run += -(-n_ticks // upd_every)
+            return outs
 
         n_metrics = len(CAMPAIGN_METRICS)
         metrics_all = np.empty((len(sims), n_metrics), np.float32)
@@ -1223,17 +1255,18 @@ class FleetRunner:
                 ev.record(cs)
             return pack, xfd, enfd, ev
 
-        def _h2d(host, j, s):
+        def _h2d(host, j, s, parent):
             # transfer worker: returns once the bytes landed (so a resolved
             # future means a finished copy, and the watchdog sees a hung
             # one). On the CPU the "copy" aliases the host slot, which the
-            # slot rotation below guards
-            t0 = time.perf_counter()
-            _fire("transfer", j)
-            out = _to_device(host, s)
-            if out[3] is not None:
-                out[3].synchronize()
-            return out, time.perf_counter() - t0
+            # slot rotation below guards. ``parent``: the span that handed
+            # the copy over, on the campaign's thread
+            with tracing.timed("transfer", parent=parent, chunk=j) as tr:
+                _fire("transfer", j)
+                out = _to_device(host, s)
+                if out[3] is not None:
+                    out[3].synchronize()
+            return out, tr.seconds
 
         def _on_compute_stream(pack, xf, enf, ev):
             """Order the current (compute) stream after the copy and keep
@@ -1250,82 +1283,89 @@ class FleetRunner:
         def _collect_oldest(s):
             nonlocal block_s
             j, bi, idxs, chunk, outs = inflight[s].pop(0)
-            t0 = time.perf_counter()
-            # block ONLY on the [rows, n_metrics] epilogue slab; the
-            # [T, ...] trajectories stay on the device and free with `outs`
-            try:
-                with on_stream(s):
-                    m = outs[6].cpu().numpy()
-            except Exception as e:  # noqa: BLE001 — route to recovery
-                block_s += time.perf_counter() - t0
-                _recover_chunk(bi, j, idxs, chunk, e)
+            bad = err = None
+            with tracing.timed("collect", chunk=j) as col:
+                # block ONLY on the [rows, n_metrics] epilogue slab; the
+                # [T, ...] trajectories stay on the device and free with
+                # `outs`
+                try:
+                    with on_stream(s):
+                        m = outs[6].cpu().numpy()
+                except Exception as e:  # noqa: BLE001 — route to recovery
+                    err = e
+                if err is None:
+                    if faults is not None and faults.poison:
+                        m = np.array(m)  # a copy: may alias device memory
+                        m[:len(idxs)][faults.poison_mask(idxs)] = np.nan
+                    if finite_check:
+                        ok = _slab_rows_ok(m[:len(idxs)])
+                        if not ok.all():
+                            bad = ~ok
+                    for b, i in enumerate(idxs):
+                        if bad is None or not bad[b]:
+                            metrics_all[i] = m[b]
+                    if results is not None:
+                        with on_stream(s):
+                            host = [o.cpu().numpy() for o in outs[:6]]
+                        for b, i in enumerate(idxs):
+                            if bad is None or not bad[b]:
+                                results[i] = result_from_padded_row(
+                                    chunk[b], b, dt, *host, m)
+            block_s += col.seconds
+            if err is not None:
+                _recover_chunk(bi, j, idxs, chunk, err)
                 return
-            if faults is not None and faults.poison:
-                m = np.array(m)  # a copy: the slab may alias device memory
-                m[:len(idxs)][faults.poison_mask(idxs)] = np.nan
-            bad = None
-            if finite_check:
-                ok = _slab_rows_ok(m[:len(idxs)])
-                if not ok.all():
-                    bad = ~ok
-            for b, i in enumerate(idxs):
-                if bad is None or not bad[b]:
-                    metrics_all[i] = m[b]
-            if results is not None:
-                with on_stream(s):
-                    host = [o.cpu().numpy() for o in outs[:6]]
-                for b, i in enumerate(idxs):
-                    if bad is None or not bad[b]:
-                        results[i] = result_from_padded_row(
-                            chunk[b], b, dt, *host, m)
-            block_s += time.perf_counter() - t0
             if bad is not None:
                 # non-finite rows: the good rows above are final (rows are
                 # independent); bisect only the poisoned ones
-                _bisect(bi, j,
-                        [i for b, i in enumerate(idxs) if bad[b]],
-                        [c for b, c in enumerate(chunk) if bad[b]])
+                with tracing.span("recover", chunk=j):
+                    _bisect(bi, j,
+                            [i for b, i in enumerate(idxs) if bad[b]],
+                            [c for b, c in enumerate(chunk) if bad[b]])
             _chunk_complete(j, idxs)
 
         def _dispatch(s):
             nonlocal dispatch_s, transfer_s, transfer_wait_s, n_dispatched
             bi, j, idxs, chunk, fut = pending[s]
             pending[s] = None
-            t0 = time.perf_counter()
-            try:
-                (pack, xf, enf, ev), t_copy = (
-                    fut.result() if transfer_timeout_s is None
-                    else fut.result(timeout=transfer_timeout_s))
-            except FuturesTimeoutError:
-                transfer_wait_s += time.perf_counter() - t0
+            err = None
+            timed_out = False
+            with tracing.timed("transfer_wait", chunk=j) as wait:
+                try:
+                    (pack, xf, enf, ev), t_copy = (
+                        fut.result() if transfer_timeout_s is None
+                        else fut.result(timeout=transfer_timeout_s))
+                except FuturesTimeoutError:
+                    timed_out = True
+                except (Exception, FuturesCancelledError) as e:  # noqa: BLE001
+                    # CancelledError here only means "the watchdog replaced
+                    # the executor while this copy was queued" — recoverable
+                    err = e
+            transfer_wait_s += wait.seconds
+            if timed_out:
                 # hung transfer: abandon the whole executor (the hung
                 # thread leaks until it returns; its result is dropped
                 # unread), rebuild it, and re-run the chunk synchronously
                 _replace_executor()
-                _recover_chunk(bi, j, idxs, chunk, TimeoutError(
-                    f"H2D transfer of chunk {j} exceeded "
-                    f"{transfer_timeout_s}s"))
+                err = TimeoutError(f"H2D transfer of chunk {j} exceeded "
+                                   f"{transfer_timeout_s}s")
+            if err is not None:
+                _recover_chunk(bi, j, idxs, chunk, err)
                 return
-            except (Exception, FuturesCancelledError) as e:  # noqa: BLE001
-                # CancelledError here only means "the watchdog replaced
-                # the executor while this copy was queued" — recoverable
-                transfer_wait_s += time.perf_counter() - t0
-                _recover_chunk(bi, j, idxs, chunk, e)
-                return
-            transfer_wait_s += time.perf_counter() - t0
             transfer_s += t_copy
-            t0 = time.perf_counter()
-            try:
-                _fire("dispatch", j)
-                with on_stream(s):
-                    _on_compute_stream(pack, xf, enf, ev)
-                    outs = compute(bi, pack, xf, enf)
-            except Exception as e:  # noqa: BLE001 — route to recovery
-                dispatch_s += time.perf_counter() - t0
-                _recover_chunk(bi, j, idxs, chunk, e)
+            with tracing.timed("dispatch", chunk=j, bucket=bi) as disp:
+                try:
+                    _fire("dispatch", j)
+                    with on_stream(s):
+                        _on_compute_stream(pack, xf, enf, ev)
+                        outs = compute(bi, pack, xf, enf)
+                except Exception as e:  # noqa: BLE001 — route to recovery
+                    err = e
+            dispatch_s += disp.seconds
+            if err is not None:
+                _recover_chunk(bi, j, idxs, chunk, err)
                 return
             n_dispatched += 1
-            dispatch_s += time.perf_counter() - t0
             inflight[s].append((j, bi, idxs, chunk, outs))
             if len(inflight[s]) > 1:
                 _collect_oldest(s)
@@ -1438,17 +1478,18 @@ class FleetRunner:
             the scenarios responsible. Never raises."""
             nonlocal n_recovered
             n_recovered += 1
-            m, host, err, _ = _try_subset(bi, j, idxs, chunk)
-            if err is not None:
-                _bisect(bi, j, idxs, chunk)
-            else:
-                ok = (_slab_rows_ok(m) if finite_check
-                      else np.ones(len(idxs), bool))
-                _accept_rows(idxs, chunk, m, host, ok)
-                if not ok.all():
-                    _bisect(bi, j,
-                            [i for b, i in enumerate(idxs) if not ok[b]],
-                            [c for b, c in enumerate(chunk) if not ok[b]])
+            with tracing.span("recover", chunk=j):
+                m, host, err, _ = _try_subset(bi, j, idxs, chunk)
+                if err is not None:
+                    _bisect(bi, j, idxs, chunk)
+                else:
+                    ok = (_slab_rows_ok(m) if finite_check
+                          else np.ones(len(idxs), bool))
+                    _accept_rows(idxs, chunk, m, host, ok)
+                    if not ok.all():
+                        _bisect(bi, j,
+                                [i for b, i in enumerate(idxs) if not ok[b]],
+                                [c for b, c in enumerate(chunk) if not ok[b]])
             _chunk_complete(j, idxs)
 
         # manual executor lifecycle: the transfer watchdog may abandon a
@@ -1471,43 +1512,46 @@ class FleetRunner:
                 shape, rows = plan[bi][1], cap_rows[bi]
                 shape_t = dataclasses.astuple(shape)
                 chunk = [sims[i] for i in idxs]
-                t0 = time.perf_counter()
-                try:
-                    _fire("pack", j)
-                    # THREE slot phases per stream, one per pipeline stage:
-                    # a slot may be refilled only once its previous
-                    # occupant was *collected* (on the CPU the device pack
-                    # aliases the slot). A stream's pipeline lags its
-                    # staging by at most two chunks (one pending transfer
-                    # plus one uncollected dispatch), so phase c % 3 of its
-                    # c-th chunk — last filled for its chunk c - 3,
-                    # collected during its chunk c - 2's dispatch — is
-                    # idle. The stream's slots of any other shape are
-                    # dropped (an in-flight transfer keeps its arrays
-                    # alive).
-                    for k in [k for k in self._campaign_bufs
-                              if k[0] == s and k[1:3] != (shape_t, rows)]:
-                        del self._campaign_bufs[k]
-                    bufs = self._campaign_bufs.setdefault(
-                        (s, shape_t, rows, staged_n[s] % 3), {})
-                    leaves = self._fill_bucket(bufs, chunk, shape, rows,
-                                               pinned=cuda)
-                    xf, enf = self._gates(chunk, idxs, shape, rows, x_fixed)
-                except Exception as e:  # noqa: BLE001 — route to recovery
+                err = None
+                with tracing.timed("stage", chunk=j, bucket=bi,
+                                   rows=rows) as st:
+                    try:
+                        _fire("pack", j)
+                        # THREE slot phases per stream, one per pipeline
+                        # stage: a slot may be refilled only once its
+                        # previous occupant was *collected* (on the CPU the
+                        # device pack aliases the slot). A stream's
+                        # pipeline lags its staging by at most two chunks
+                        # (one pending transfer plus one uncollected
+                        # dispatch), so phase c % 3 of its c-th chunk —
+                        # last filled for its chunk c - 3, collected during
+                        # its chunk c - 2's dispatch — is idle. The
+                        # stream's slots of any other shape are dropped (an
+                        # in-flight transfer keeps its arrays alive).
+                        for k in [k for k in self._campaign_bufs
+                                  if k[0] == s and k[1:3] != (shape_t, rows)]:
+                            del self._campaign_bufs[k]
+                        bufs = self._campaign_bufs.setdefault(
+                            (s, shape_t, rows, staged_n[s] % 3), {})
+                        leaves = self._fill_bucket(bufs, chunk, shape, rows,
+                                                   pinned=cuda)
+                        xf, enf = self._gates(chunk, idxs, shape, rows,
+                                              x_fixed)
+                    except Exception as e:  # noqa: BLE001 — to recovery
+                        err = e
+                stage_s += st.seconds
+                if err is not None:
                     # nothing was submitted and the phase counter stays
                     # put; the chunk re-runs on scratch buffers
-                    stage_s += time.perf_counter() - t0
-                    _recover_chunk(bi, j, idxs, chunk, e)
+                    _recover_chunk(bi, j, idxs, chunk, err)
                     continue
                 staged_n[s] += 1
-                t1 = time.perf_counter()
-                stage_s += t1 - t0
                 # staging is *hidden* when compute is in flight, and
                 # *hideable* unless the pipeline had nothing to run yet
                 if any(inflight):
-                    hidden_stage_s += t1 - t0
+                    hidden_stage_s += st.seconds
                 if any(inflight) or any(p is not None for p in pending):
-                    hideable_stage_s += t1 - t0
+                    hideable_stage_s += st.seconds
                 peak_bytes = max(peak_bytes, sum(
                     b.nbytes for slot in self._campaign_bufs.values()
                     for b in slot.values()))
@@ -1517,7 +1561,8 @@ class FleetRunner:
                 # previous transfer's chunk before submitting the next copy
                 if pending[s] is not None:
                     _dispatch(s)
-                fut = ex_holder[0].submit(_h2d, (leaves, xf, enf), j, s)
+                fut = ex_holder[0].submit(_h2d, (leaves, xf, enf), j, s,
+                                          tracing.current())
                 pending[s] = (bi, j, idxs, chunk, fut)
             # drain: dispatch each stream's prefetched chunk, then collect
             for s in range(n_streams):
@@ -1543,7 +1588,8 @@ class FleetRunner:
                                   cancel_futures=True)
             if status != "ok":
                 self._campaign_bufs.clear()
-            wall_s = time.perf_counter() - t_wall0
+            whole.stop()
+            wall_s = whole.seconds
             self.last_stats = {
                 "mode": "campaign",
                 "status": status,
@@ -1574,6 +1620,8 @@ class FleetRunner:
                 "transfer_s": transfer_s,
                 "transfer_wait_s": transfer_wait_s,
                 "block_s": block_s,
+                "n_ticks": ticks_run,
+                "n_updates": updates_run,
                 "wall_s": wall_s,
                 "overlap_fraction": (hidden_stage_s / hideable_stage_s
                                      if hideable_stage_s > 0 else 1.0),

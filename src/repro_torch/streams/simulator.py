@@ -42,6 +42,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.allocator import LinkProgram, allocate
 from repro_torch.core.flowstate import FlowState
 from repro_torch.core.multiapp import (
@@ -217,6 +218,7 @@ def _validate_sim_inputs(where: str, *,
                 f"{field}.ravel()[{i}] = {a.ravel()[i]}")
 
 
+@tracing.traced("compile_sim")
 def compile_sim(
     graph: InstanceGraph,
     topo: Topology,
@@ -232,7 +234,9 @@ def compile_sim(
     events (the SDN controller reprograms routes around failed links
     mid-run); an explicit ``RouteSchedule`` is used as-is. A schedule whose
     events never change the route set collapses to a single state and
-    compiles exactly like ``reroute=False``."""
+    compiles exactly like ``reroute=False``. Records a ``compile_sim`` span
+    while recording is on (:mod:`repro_torch.tracing`), and a
+    ``route_bank`` span inside it where a route bank is built."""
     dev = resolve_device(device)
     flows = graph.flow_pairs(machine_of_inst)
     R = topo.routing_matrix(flows)
@@ -293,27 +297,28 @@ def compile_sim(
                        ("ev_t0", schedule.ev_t0),
                        ("ev_t1", schedule.ev_t1)])
     F, L = len(flows), topo.n_links
-    if reroute is True:
-        reroute = RouteSchedule.from_events(topo, flows, schedule)
     route_bank = np.zeros((0, F, L), np.float32)
     route_t = np.zeros((0,), np.float32)
     route_state = np.zeros((0,), np.int32)
-    if isinstance(reroute, RouteSchedule):
-        if reroute.routes.shape[1:] != (F, L):
-            raise ValueError(
-                f"route schedule is [{reroute.routes.shape[1]} flows, "
-                f"{reroute.routes.shape[2]} links]; scenario has "
-                f"[{F}, {L}]")
-        if reroute.n_states > 1:
-            # single shared S_r axis for bank + interval arrays: padded
-            # intervals never activate, padded bank states never indexed
-            sr = max(reroute.n_states, reroute.n_intervals)
-            route_bank = np.zeros((sr, F, L), np.float32)
-            route_bank[:reroute.n_states] = reroute.routes
-            route_t = np.full((sr,), np.inf, np.float32)
-            route_t[:reroute.n_intervals] = reroute.t0
-            route_state = np.zeros((sr,), np.int32)
-            route_state[:reroute.n_intervals] = reroute.state
+    if reroute is True or isinstance(reroute, RouteSchedule):
+        with tracing.span("route_bank"):
+            if reroute is True:
+                reroute = RouteSchedule.from_events(topo, flows, schedule)
+            if reroute.routes.shape[1:] != (F, L):
+                raise ValueError(
+                    f"route schedule is [{reroute.routes.shape[1]} flows, "
+                    f"{reroute.routes.shape[2]} links]; scenario has "
+                    f"[{F}, {L}]")
+            if reroute.n_states > 1:
+                # single shared S_r axis for bank + interval arrays: padded
+                # intervals never activate, padded bank states never indexed
+                sr = max(reroute.n_states, reroute.n_intervals)
+                route_bank = np.zeros((sr, F, L), np.float32)
+                route_bank[:reroute.n_states] = reroute.routes
+                route_t = np.full((sr,), np.inf, np.float32)
+                route_t[:reroute.n_intervals] = reroute.t0
+                route_state = np.zeros((sr,), np.int32)
+                route_state[:reroute.n_intervals] = reroute.state
     fields = dict(
         R=R,
         caps=topo.capacities,
@@ -803,9 +808,10 @@ def _run(sim: CompiledSim, policy: str, n_ticks: int, dt: float,
     # tick times in float32, like the event and route times they are
     # compared with
     ts = torch.arange(n_ticks, dtype=f32, device=dev) * dt
-    caps_sched = (_caps_over(sim, ts) if dynamic
-                  else torch.zeros((0, L), dtype=f32, device=dev))
-    states_seq = _route_states_over(sim, ts) if rerouting else None
+    with tracing.span("schedule"):
+        caps_sched = (_caps_over(sim, ts) if dynamic
+                      else torch.zeros((0, L), dtype=f32, device=dev))
+        states_seq = _route_states_over(sim, ts) if rerouting else None
     if policy == "fixed":
         x_fixed = torch.as_tensor(x_fixed, dtype=f32, device=dev)
     kw = dict(dt=dt, upd_every=upd_every, alpha=alpha, n_groups=n_groups,
@@ -824,19 +830,23 @@ def _run(sim: CompiledSim, policy: str, n_ticks: int, dt: float,
         R_upd = sim.R if R_t is None else R_t
         reb = no_rebuild
         if tick % upd_every == 0:
-            carry, reb = _update(sim, policy, carry, R_upd, caps_upd,
-                                 x_fixed, **kw)
-        carry, ys = _advance(sim, policy, carry, caps_t, R_t, enforce,
-                             dt=dt, qcap=qcap)
+            with tracing.span("update", tick=tick):
+                carry, reb = _update(sim, policy, carry, R_upd, caps_upd,
+                                     x_fixed, **kw)
+        with tracing.span("advance", tick=tick):
+            carry, ys = _advance(sim, policy, carry, caps_t, R_t, enforce,
+                                 dt=dt, qcap=qcap)
         ys_all.append(ys)
         reb_all.append(reb)
-    sink, sink_app, wait, load = (torch.stack(c) for c in zip(*ys_all))
-    out = (sink, sink_app, wait, load, torch.stack(reb_all), caps_sched)
-    if not with_metrics:
-        return out
-    caps_grid = caps_sched if dynamic else sim.caps[None, :].expand(n_ticks, L)
-    return out + (_metrics_epilogue(sink, wait, load, caps_grid, sim.path_w,
-                                    dt, t_event),)
+    with tracing.span("epilogue"):
+        sink, sink_app, wait, load = (torch.stack(c) for c in zip(*ys_all))
+        out = (sink, sink_app, wait, load, torch.stack(reb_all), caps_sched)
+        if not with_metrics:
+            return out
+        caps_grid = (caps_sched if dynamic
+                     else sim.caps[None, :].expand(n_ticks, L))
+        return out + (_metrics_epilogue(sink, wait, load, caps_grid,
+                                        sim.path_w, dt, t_event),)
 
 
 def _run_bucket(pack: "dict[str, torch.Tensor]", n_apps: int, policy: str,
@@ -895,13 +905,15 @@ def _bucket_ticks(pack, n_apps, policy, n_ticks, dt, upd_every, x_fixed,
         return CompiledSim(tuples_per_mb=1.0, n_apps=n_apps,
                            **{k: f.get(k) for k in DATA_FIELDS})
 
-    caps_sched = (vmap(lambda f: _caps_over(sim_of(f), ts))(
-        {k: pack[k] for k in ("caps", "sin_amp", "sin_omega", "sin_phase",
-                              "ev_t0", "ev_t1", "ev_link", "ev_scale")})
-        if dynamic else torch.zeros((Bn, 0, L), dtype=f32, device=dev))
-    states_seq = (vmap(lambda f: _route_states_over(sim_of(f), ts))(
-        {k: pack[k] for k in ("route_t", "route_state")})
-        if rerouting else None)
+    with tracing.span("schedule", rows=Bn):
+        caps_sched = (vmap(lambda f: _caps_over(sim_of(f), ts))(
+            {k: pack[k] for k in ("caps", "sin_amp", "sin_omega",
+                                  "sin_phase", "ev_t0", "ev_t1", "ev_link",
+                                  "ev_scale")})
+            if dynamic else torch.zeros((Bn, 0, L), dtype=f32, device=dev))
+        states_seq = (vmap(lambda f: _route_states_over(sim_of(f), ts))(
+            {k: pack[k] for k in ("route_t", "route_state")})
+            if rerouting else None)
     step = {k: pack[k] for k in STEP_FIELDS}
     kw = dict(dt=dt, upd_every=upd_every, alpha=alpha, n_groups=n_groups,
               qcap=qcap, solver=solver)
@@ -943,28 +955,36 @@ def _bucket_ticks(pack, n_apps, policy, n_ticks, dt, upd_every, x_fixed,
         R_upd = R if R_t is None else R_t
         reb = no_rebuild
         if tick % upd_every == 0:
-            per_link = None
-            if waterfill:
-                from repro_torch.kernels.waterfill.ops import waterfill_fleet
-                args = v_wf_args(step, carry, R_upd, caps_upd)
-                per_link = waterfill_fleet(
-                    *(a.contiguous() for a in args), dt=dt * upd_every)
-            carry, reb = v_update(step, carry, R_upd, caps_upd, x_fixed,
-                                  per_link)
-        carry, ys = v_advance(step, carry, caps_t, R_t,
-                              enforce if dynamic else None)
+            with tracing.span("update", tick=tick):
+                per_link = None
+                if waterfill:
+                    with tracing.span("solve", tick=tick):
+                        from repro_torch.kernels.waterfill.ops import (
+                            waterfill_fleet)
+                        args = v_wf_args(step, carry, R_upd, caps_upd)
+                        per_link = waterfill_fleet(
+                            *(a.contiguous() for a in args),
+                            dt=dt * upd_every)
+                carry, reb = v_update(step, carry, R_upd, caps_upd, x_fixed,
+                                      per_link)
+        with tracing.span("advance", tick=tick):
+            carry, ys = v_advance(step, carry, caps_t, R_t,
+                                  enforce if dynamic else None)
         ys_all.append(ys)
         reb_all.append(reb)
         yield
-    sink, sink_app, wait, load = (torch.stack(c, 1) for c in zip(*ys_all))
-    out = (sink, sink_app, wait, load, torch.stack(reb_all, 1), caps_sched)
-    if not with_metrics:
-        return out
-    caps_grid = (caps_sched if dynamic
-                 else pack["caps"][:, None, :].expand(Bn, n_ticks, L))
-    metrics = vmap(lambda *a: _metrics_epilogue(*a, dt, t_event))(
-        sink, wait, load, caps_grid, pack["path_w"])
-    return out + (metrics,)
+    with tracing.span("epilogue", rows=Bn):
+        sink, sink_app, wait, load = (torch.stack(c, 1)
+                                      for c in zip(*ys_all))
+        out = (sink, sink_app, wait, load, torch.stack(reb_all, 1),
+               caps_sched)
+        if not with_metrics:
+            return out
+        caps_grid = (caps_sched if dynamic
+                     else pack["caps"][:, None, :].expand(Bn, n_ticks, L))
+        metrics = vmap(lambda *a: _metrics_epilogue(*a, dt, t_event))(
+            sink, wait, load, caps_grid, pack["path_w"])
+        return out + (metrics,)
 
 
 def result_from_padded_row(sim: CompiledSim, b: int, dt: float,
