@@ -14,7 +14,8 @@ Three entry points share the kernel:
 
 Tensors on the CPU go through the plain version
 (:func:`repro_torch.kernels.waterfill.ref.waterfill_plain`); CUDA tensors
-launch the kernel on the current stream, without synchronising, or raise;
+launch the kernel on the current stream, without synchronising, or raise
+(into a CUDA graph, where that stream is capturing);
 meta tensors get an empty [L, F] output of the kernel's shape (a shape
 function: nothing runs, no launch is counted). The JAX kernel's
 ``block_links``/``block_flows`` tiling knobs and its padding to 128 lanes
@@ -49,6 +50,10 @@ LAUNCHES = 0
 # The same launches by (card index, CUDA stream handle) they were queued
 # on: a sharded campaign's streams each launch their own.
 STREAM_LAUNCHES: dict = {}
+# Launches recorded into a CUDA graph while it was captured. They run at
+# each replay, which counts them in LAUNCHES (:func:`count_launches`); the
+# capture itself runs nothing and counts them here alone.
+CAPTURED = 0
 
 # Masked flows a link's on-chip list holds (16 bytes each: index, mask
 # value and two floats of flow state). A datacenter downlink carries ~48,
@@ -141,9 +146,19 @@ def _check(weights, backlog, rho, mask, capacity, kind, flow_shape):
                              f"{tuple(named[nm].shape)}")
 
 
+def count_launches(n: int, device_index: int, stream: int) -> None:
+    """Count ``n`` launches queued on ``stream`` (a CUDA stream handle) of
+    card ``device_index``: in :data:`LAUNCHES` and
+    :data:`STREAM_LAUNCHES`."""
+    global LAUNCHES
+    LAUNCHES += n
+    key = (device_index, stream)
+    STREAM_LAUNCHES[key] = STREAM_LAUNCHES.get(key, 0) + n
+
+
 def _solve(weights, backlog, rho, mask, capacity, kind, dt, flow_stride,
            links_per_group=0):
-    global LAUNCHES
+    global CAPTURED
     if mask.device.type == "cpu":
         if links_per_group:
             Bn, F = weights.shape
@@ -171,12 +186,14 @@ def _solve(weights, backlog, rho, mask, capacity, kind, dt, flow_stride,
             plan["group_stride"], mask.data_ptr(), capacity.data_ptr(),
             kind.data_ptr(), out.data_ptr(), L, F, float(dt), LIST_BUDGET,
             stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError("waterfill kernel launch failed: "
                            + lib.waterfill_error_string(err).decode())
-    LAUNCHES += 1
-    key = (mask.device.index, stream)
-    STREAM_LAUNCHES[key] = STREAM_LAUNCHES.get(key, 0) + 1
+    if capturing:
+        CAPTURED += 1
+    else:
+        count_launches(1, mask.device.index, stream)
     return out
 
 

@@ -103,6 +103,7 @@ from repro_torch.core.tcp import maxmin_fused
 from repro_torch.device import resolve_device
 from repro_torch.net.topology import LinkKind
 from repro_torch.streams.faults import FailureRecord, FaultPlan, InjectedFault
+from repro_torch.streams.graphs import BucketGraphs
 from repro_torch.streams.simulator import (
     CAMPAIGN_METRICS,
     CompiledSim,
@@ -744,8 +745,9 @@ class FleetRunner:
     ``device="cpu"``) and, with ``shard``, on a list of devices.
 
     Caches, all per instance: the host staging buffers per (bucket shape,
-    members, rows), the device-resident pack per staging key, and the
-    bucket plan per (fleet shape multiset, policy). ``fused=True`` runs all
+    members, rows), the device-resident pack per staging key, the bucket
+    plan per (fleet shape multiset, policy), and on a card the campaign's
+    streams and a CUDA graph per chunk signature. ``fused=True`` runs all
     buckets in one host tick loop, ``fused=False`` one loop per bucket (the
     per-bucket oracle). ``last_stats`` reports the tick loops run
     (``n_dispatches``), the bucket structure and padded row counts of the
@@ -779,6 +781,13 @@ class FleetRunner:
         self._plan_cache: dict[tuple, list[tuple[list[int], FleetShape]]] = {}
         # campaign staging slots: (shape, rows, phase) -> buffers
         self._campaign_bufs: dict[tuple, dict[str, np.ndarray]] = {}
+        # campaign streams on a card: (device, stream slot) -> (copy
+        # stream, compute stream), kept so that the graphs of a slot's
+        # chunks replay across calls
+        self._cuda_streams: dict[tuple, tuple] = {}
+        # a campaign chunk's whole tick loop as one CUDA graph, per
+        # signature (repro_torch.streams.graphs)
+        self._graphs = BucketGraphs()
         self.last_stats: dict = {}
 
     # ---------------------------------------------------------- planning
@@ -1077,15 +1086,25 @@ class FleetRunner:
         metric rows are the same bits on any number of streams, and a
         checkpoint written with one stream resumes a run with four.
 
+        On a card a chunk's whole tick loop is one CUDA graph, captured once
+        per signature and replayed for every later chunk with it, on this
+        runner's graphs (:class:`~repro_torch.streams.graphs.BucketGraphs`;
+        the first chunk on a card runs eager); its rows are the eager
+        loop's, bit for bit. The graphs are dropped when a campaign fails.
+
         The call records host spans (:mod:`repro_torch.tracing`) while
         recording is on: ``campaign``; ``plan``; per chunk ``stage``,
         ``transfer`` (on the copy worker), ``transfer_wait``, ``dispatch``
-        (the tick loop's spans inside it) and ``collect``; ``recover``.
-        ``last_stats``' ``stage_s``, ``transfer_s``, ``transfer_wait_s``,
-        ``dispatch_s`` and ``block_s`` are the sums of those spans' own
-        clock readings, whether recording is on or off; ``n_ticks`` and
-        ``n_updates`` count the bucket ticks and controller updates the tick
-        loops ran, retries included."""
+        (inside it the tick loop's spans, or ``capture`` and ``replay``)
+        and ``collect``; ``recover``. ``last_stats``' ``stage_s``,
+        ``transfer_s``, ``transfer_wait_s``, ``dispatch_s`` and ``block_s``
+        are the sums of those spans' own clock readings, whether recording
+        is on or off; ``n_ticks`` and ``n_updates`` count the bucket ticks
+        and controller updates the tick loops ran, retries included, by
+        replay or eager; ``n_graph_captures``, ``n_graph_replays`` and
+        ``n_graph_fallbacks`` (captures that raised, whose signature then
+        runs eager) count the graph work, and ``graph_tick_share`` is the
+        share of ``n_ticks`` that ran by replay."""
         with tracing.timed("campaign", scenarios=len(sims)) as whole:
             return self._campaign(
                 whole, sims, policy, seconds, dt, upd_every, x_fixed, alpha,
@@ -1147,10 +1166,13 @@ class FleetRunner:
         devs = self._shard_devices(shard)
         n_streams = max(1, min(len(devs), len(jobs)))
         devs = devs[:n_streams]
-        copy_streams = ([torch.cuda.Stream(d) for d in devs] if cuda
-                        else [None] * n_streams)
-        compute_streams = ([torch.cuda.Stream(d) for d in devs] if cuda
-                           else [None] * n_streams)
+        for s, d in enumerate(devs if cuda else ()):
+            if (d, s) not in self._cuda_streams:
+                self._cuda_streams[d, s] = (torch.cuda.Stream(d),
+                                            torch.cuda.Stream(d))
+        copy_streams, compute_streams = (
+            zip(*(self._cuda_streams[d, s] for s, d in enumerate(devs)))
+            if cuda else ([None] * n_streams, [None] * n_streams))
 
         def on_stream(s):
             """Stream ``s``'s device and compute stream current (on a
@@ -1164,10 +1186,12 @@ class FleetRunner:
             return stack
 
         ticks_run = updates_run = 0
+        graphs = self._graphs
+        graphs0 = (graphs.captures, graphs.replays, graphs.fallbacks)
 
         def compute(bi, pack, xf, enf):
             nonlocal ticks_run, updates_run
-            outs = _run_bucket(
+            outs = graphs.run(
                 pack, plan[bi][1].n_apps, policy, n_ticks, dt, upd_every,
                 x_fixed=xf, alpha=alpha, n_groups=n_groups, qcap=qcap,
                 solver=solver, enforce=enf, with_metrics=True,
@@ -1588,7 +1612,11 @@ class FleetRunner:
                                   cancel_futures=True)
             if status != "ok":
                 self._campaign_bufs.clear()
+                graphs.clear()
             whole.stop()
+            n_capt, n_repl, n_fall = (
+                graphs.captures - graphs0[0], graphs.replays - graphs0[1],
+                graphs.fallbacks - graphs0[2])
             wall_s = whole.seconds
             self.last_stats = {
                 "mode": "campaign",
@@ -1622,6 +1650,11 @@ class FleetRunner:
                 "block_s": block_s,
                 "n_ticks": ticks_run,
                 "n_updates": updates_run,
+                "n_graph_captures": n_capt,
+                "n_graph_replays": n_repl,
+                "n_graph_fallbacks": n_fall,
+                "graph_tick_share": (n_repl * n_ticks / ticks_run
+                                     if ticks_run else 0.0),
                 "wall_s": wall_s,
                 "overlap_fraction": (hidden_stage_s / hideable_stage_s
                                      if hideable_stage_s > 0 else 1.0),

@@ -871,7 +871,9 @@ def _run_bucket(pack: "dict[str, torch.Tensor]", n_apps: int, policy: str,
 
     ``stepwise=True`` returns the loop as a generator that yields once per
     tick and returns the outputs, so a caller can interleave the ticks of
-    several buckets in one host loop."""
+    several buckets in one host loop. The whole run is also the body that
+    :class:`repro_torch.streams.graphs.BucketGraphs` captures as one CUDA
+    graph."""
     if policy not in POLICIES:
         raise ValueError(policy)
     loop = _bucket_ticks(pack, n_apps, policy, n_ticks, dt, upd_every,

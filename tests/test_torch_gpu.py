@@ -5,7 +5,9 @@ the simulator's main path, a fleet run, ``moe_ffn`` and reduced zamba2,
 qwen3-moe, internvl2 and whisper serves on the card against the same runs
 on the CPU, two bitwise-equal card runs of ``moe_ffn``, a faulted and
 resumed campaign on the card, a campaign on four streams of the one card
-bit for bit one stream's, and a meshed train state saved, restored and
+bit for bit one stream's, campaigns replayed from CUDA graphs bit for bit
+the eager loop (and a capture that raises, counted as a fallback), and a
+meshed train state saved, restored and
 replayed on a one-rank CUDA mesh. They import no JAX, so they run on a machine
 that has only PyTorch:
 
@@ -650,6 +652,135 @@ def test_campaign_on_four_streams_of_one_card(policy):
         for x, y in zip(a, b):
             for f in ("sink_mb", "link_load", "latency"):
                 np.testing.assert_array_equal(getattr(x, f), getattr(y, f))
+
+
+# ---- the campaign's tick loops as CUDA graphs -------------------------------
+def _eager_bucket(pack, *args, **kw):
+    """``_run_bucket`` run to its end through its per-tick generator: the
+    eager loop, which ``FleetRunner.run`` drives too."""
+    from repro_torch.streams.simulator import _run_bucket
+
+    loop = _run_bucket(pack, *args, stepwise=True, **kw)
+    while True:
+        try:
+            next(loop)
+        except StopIteration as stop:
+            return stop.value
+
+
+def _graph_campaign_case(policy, solver):
+    from repro_torch.streams import campaign_fleet, compile_fleet
+
+    sims = compile_fleet(campaign_fleet(54, seed=0), device="cpu")
+    kw = dict(seconds=8.0, chunk_rows=8, solver=solver)
+    if policy == "fixed":
+        kw["x_fixed"] = [np.full(s.R.shape[0], 0.25, np.float32)
+                         for s in sims]
+    return sims, kw
+
+
+def _eager_runner(dev):
+    from repro_torch.streams import FleetRunner
+
+    runner = FleetRunner(device=dev)
+    runner._graphs.run = _eager_bucket
+    return runner
+
+
+@pytest.mark.parametrize("policy,solver", [
+    ("appaware", "waterfill"), ("appaware", "sort"), ("tcp", "sort"),
+    ("fixed", "sort"), ("appfair", "sort")])
+def test_campaign_from_graphs_is_the_eager_loop(policy, solver):
+    """On the card ``run_campaign`` replays each chunk's tick loop from a
+    CUDA graph: its rows are the eager loop's bit for bit, in a first call
+    (the first chunk eager, each new signature captured) and in a second
+    (every chunk replayed, ``graph_tick_share`` 1.0). Chunks of 8 rows give
+    several chunks of one signature, kept two in flight on the one stream:
+    each keeps its own rows. The waterfill kernel's launches count as the
+    eager run's."""
+    from repro_torch.streams import FleetRunner
+
+    dev = _cuda()
+    sims, kw = _graph_campaign_case(policy, solver)
+    ops.LAUNCHES = 0
+    want = _eager_runner(dev).run_campaign(sims, policy, **kw).metrics
+    n_eager = ops.LAUNCHES
+    runner = FleetRunner(device=dev)
+    for call in (1, 2):
+        ops.LAUNCHES = 0
+        got = runner.run_campaign(sims, policy, **kw)
+        st = runner.last_stats
+        np.testing.assert_array_equal(got.metrics, want)
+        assert ops.LAUNCHES == n_eager
+        assert st["n_graph_fallbacks"] == 0
+        n_sigs = len(runner._graphs._entries)
+        assert st["n_chunks"] > n_sigs > 0          # signatures repeat
+        if call == 1:
+            assert st["n_graph_captures"] == n_sigs
+            assert st["n_graph_replays"] == st["n_chunks"] - 1
+        else:
+            assert st["n_graph_captures"] == 0
+            assert st["n_graph_replays"] == st["n_chunks"]
+            assert st["graph_tick_share"] == 1.0
+    assert (n_eager > 0) == (solver == "waterfill")
+
+
+def test_graph_spans_take_the_place_of_the_tick_spans():
+    """Recorded on the card: a first call's eager chunk records its tick
+    spans, each signature one ``capture`` (with no tick span of its own:
+    they would time the capture) and each other chunk one ``replay``, all
+    inside ``dispatch``; a second call only replays."""
+    from repro_torch import tracing
+    from repro_torch.streams import FleetRunner
+
+    dev = _cuda()
+    sims, kw = _graph_campaign_case("appaware", "waterfill")
+    runner = FleetRunner(device=dev)
+    for call in (1, 2):
+        with tracing.recording() as rec:
+            runner.run_campaign(sims, "appaware", **kw)
+        st = runner.last_stats
+        names = [s.name for s in rec.spans]
+        by_id = {s.id: s for s in rec.spans}
+        for s in rec.spans:
+            if s.name in ("capture", "replay"):
+                assert by_id[s.parent].name == "dispatch"
+        eager_ticks = 0 if call == 2 else st["n_ticks"] // st["n_chunks"]
+        assert names.count("advance") == eager_ticks
+        assert names.count("capture") == st["n_graph_captures"]
+        assert names.count("replay") == st["n_graph_replays"]
+        assert st["n_graph_captures"] == (len(runner._graphs._entries)
+                                          if call == 1 else 0)
+
+
+def test_a_capture_that_raises_falls_back_and_is_counted(monkeypatch):
+    """A signature whose capture raises runs eager from then on: counted in
+    ``n_graph_fallbacks``, nothing captured or replayed, the rows the eager
+    loop's."""
+    from repro_torch.streams import FleetRunner
+    from repro_torch.streams import simulator
+
+    dev = _cuda()
+    sims, kw = _graph_campaign_case("appaware", "waterfill")
+    want = _eager_runner(dev).run_campaign(sims, "appaware", **kw).metrics
+    epilogue = simulator._metrics_epilogue
+
+    def refuses_capture(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("not capturable")
+        return epilogue(*a, **k)
+
+    monkeypatch.setattr(simulator, "_metrics_epilogue", refuses_capture)
+    runner = FleetRunner(device=dev)
+    for call in (1, 2):
+        got = runner.run_campaign(sims, "appaware", **kw)
+        st = runner.last_stats
+        np.testing.assert_array_equal(got.metrics, want)
+        assert st["n_graph_captures"] == st["n_graph_replays"] == 0
+        assert st["graph_tick_share"] == 0.0
+        entries = runner._graphs._entries
+        assert entries and all(e is None for e in entries.values())
+        assert st["n_graph_fallbacks"] == (len(entries) if call == 1 else 0)
 
 
 # ---- the training path ----------------------------------------------------

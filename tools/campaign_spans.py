@@ -10,7 +10,9 @@ number is the CPU's.)
 Set-up as the benchmark's (``portbench/run.py``): the cell's scenarios
 drawn from ``--seed`` and compiled through the port, here with the recorder
 on, so that ``compile_sim``'s share of the compile time shows; one warm-up
-job. Then, on the card:
+job, recorded too, so that its CUDA graph captures show (``capture`` spans,
+and the job's ``n_graph_captures``, ``n_graph_replays``,
+``n_graph_fallbacks`` and ``graph_tick_share``). Then, on the card:
 
 1. the clock: one small launch inside a span after a synchronise, 20 times,
    under the profiler (CPU and CUDA activity): how far the launch's host
@@ -20,11 +22,12 @@ job. Then, on the card:
 3. ``--pairs`` pairs of jobs with the recorder off and on, in turns, first
    untimed by the profiler, then traced as the benchmark traces its job
    (CUDA activity, the window from the job's start to the card's
-   synchronise): each job's wall time, idle share and ``overlap_fraction``,
-   and for the recorded traced jobs ``launches_per_tick``,
-   ``advance_host_us``, ``update_host_us``, ``idle_in_dispatch``, the share
-   of the job the launching thread's spans cover, and the idle time split by
-   the innermost span's path.
+   synchronise): each job's wall time, idle share, ``overlap_fraction`` and
+   graph counters, and for the recorded traced jobs ``launches_per_tick``,
+   ``advance_host_us``, ``update_host_us`` (both absent where every chunk
+   replays a graph), ``replay_host_us``, ``capture_host_us``,
+   ``idle_in_dispatch``, the share of the job the launching thread's spans
+   cover, and the idle time split by the innermost span's path.
 
 Prints one JSON object on standard output (each job's line also on
 standard error as it ends). Imports no JAX.
@@ -98,6 +101,16 @@ def host_us_per_op(dev, sync, n: int = 2000) -> dict:
     return out
 
 
+GRAPH_KEYS = ("n_graph_captures", "n_graph_replays", "n_graph_fallbacks",
+              "graph_tick_share")
+
+
+def graph_stats(st: dict) -> dict:
+    """A campaign's CUDA graph counters from its ``last_stats`` (none from a
+    port that keeps none)."""
+    return {k: st[k] for k in GRAPH_KEYS if k in st}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", default="testbed-campaign-appaware")
@@ -143,7 +156,13 @@ def main(argv=None) -> int:
                         if s.name == "compile_sim") * 1e-9
     warm = program.Job(sims, config, traffic, dev,
                        seconds=float(traffic["warmup_s"]))
-    warm()
+    t0 = time.perf_counter()
+    with tracing.recording() as wrec:
+        wst = warm()["stats"]
+    sync()
+    warm_s = time.perf_counter() - t0
+    capture_s = [(s.end_ns - s.start_ns) * 1e-9 for s in wrec.spans
+                 if s.name == "capture"]
     job = program.Job(sims, config, traffic, dev, runner=warm.runner)
     sync()
     out = {"device": torch.cuda.get_device_name(dev) if cuda else "cpu",
@@ -153,7 +172,9 @@ def main(argv=None) -> int:
            "setup": {"compile_s": compile_s, "compile_sim_s": compile_sim_s,
                      "compile_sim_share": compile_sim_s / compile_s,
                      "n_compile_sim": names.count("compile_sim"),
-                     "n_route_bank": names.count("route_bank")},
+                     "n_route_bank": names.count("route_bank"),
+                     "warmup_job_s": warm_s, "capture_s": capture_s,
+                     **graph_stats(wst)},
            "clock": clock_probe(dev, sync, profile,
                                 {ProfilerActivity.CPU, activity}),
            "host_us_per_op": host_us_per_op(dev, sync), "untraced": [],
@@ -178,7 +199,8 @@ def main(argv=None) -> int:
         st = res["stats"]
         row = {"record": record, "job_s": (e_ns - s_ns) * 1e-9,
                "campaign_overlap": 100.0 * st["overlap_fraction"],
-               "n_ticks": st["n_ticks"], "n_updates": st["n_updates"]}
+               "n_ticks": st["n_ticks"], "n_updates": st["n_updates"],
+               **graph_stats(st)}
         if not traced:
             return row
         prof.__exit__(None, None, None)
@@ -202,7 +224,8 @@ def main(argv=None) -> int:
         split = tracing.idle_by_span(busy, pieces, s_ns, e_ns)
         row.update(
             advance_host_us=mean_us("advance"), update_host_us=mean_us("update"),
-            solve_host_us=mean_us("solve"),
+            solve_host_us=mean_us("solve"), replay_host_us=mean_us("replay"),
+            capture_host_us=mean_us("capture"),
             idle_in_dispatch=100.0 * sum(v[0] for p, v in split.items()
                                          if "dispatch" in p.split(" > ")) / job_s,
             span_cover=sum(min(b, e_ns) - max(a, s_ns) for a, b, _ in pieces
