@@ -110,12 +110,49 @@ class Topology:
             return None
         return [up, dn]
 
-    def routing_matrix(self, flows: Sequence[tuple[int, int]]) -> np.ndarray:
+    def path_links(self, src: np.ndarray, dst: np.ndarray,
+                   down: "np.ndarray | None" = None):
+        """Every flow's path at once: ``(links, used, ok)``, the [F, 4] link
+        ids of uplink, rack-to-core, core-to-rack and downlink, which of
+        them the flow takes ([F, 4] bool), and [F] bool. Without ``down``
+        each path is :meth:`route`'s and ``ok`` is all true; with it, each
+        is :meth:`route_avoiding`'s, and ``ok`` is false where that gives
+        ``None``."""
+        src = np.asarray(src, np.int64).reshape(-1)
+        dst = np.asarray(dst, np.int64).reshape(-1)
+        F, C = src.size, self.n_cores
+        links = np.zeros((F, 4), np.int64)
+        used = np.zeros((F, 4), bool)
+        net = src != dst
+        rs, rd = self.rack_of[src], self.rack_of[dst]
+        cross = net & (rs != rd) & (C > 0)
+        links[:, 0], used[:, 0] = self.uplink_idx[src], net
+        links[:, 3], used[:, 3] = self.downlink_idx[dst], net
+        ok = np.ones(F, bool)
+        if down is not None:
+            ok = ~net | ~(down[links[:, 0]] | down[links[:, 3]])
+        i = np.flatnonzero(cross)
+        if i.size:
+            c = (src[i] + dst[i]) % C
+            if down is not None:
+                cand = (c[:, None] + np.arange(C)[None, :]) % C
+                a = self.rack_to_core_idx[rs[i, None], cand]
+                b = self.core_to_rack_idx[cand, rd[i, None]]
+                alive = (a >= 0) & (b >= 0) & ~down[a] & ~down[b]
+                c = cand[np.arange(i.size), alive.argmax(1)]
+                ok[i] &= alive.any(1)
+            links[i, 1] = self.rack_to_core_idx[rs[i], c]
+            links[i, 2] = self.core_to_rack_idx[c, rd[i]]
+            used[i, 1:3] = True
+        return links, used, ok
+
+    def routing_matrix(self, flows: Sequence[tuple[int, int]],
+                       dtype=np.float64) -> np.ndarray:
         """Binary R[f, l] = 1 iff flow f traverses link l (eq. 1a)."""
-        R = np.zeros((len(flows), self.n_links), dtype=np.float64)
-        for f, (s, d) in enumerate(flows):
-            for l in self.route(s, d):
-                R[f, l] = 1.0
+        pairs = np.asarray(flows, np.int64).reshape(-1, 2)
+        R = np.zeros((pairs.shape[0], self.n_links), dtype=dtype)
+        links, used, _ = self.path_links(pairs[:, 0], pairs[:, 1])
+        R[np.nonzero(used)[0], links[used]] = 1.0
         return R
 
     def set_capacity(self, kind: LinkKind, capacity: float) -> "Topology":
@@ -308,7 +345,8 @@ class RouteSchedule:
                     ) -> "RouteSchedule":
         """Enumerate reachable route states from ``schedule``'s events."""
         F, L = len(flows), topo.n_links
-        base_R = topo.routing_matrix(flows).astype(np.float32)
+        pairs = np.asarray(flows, np.int64).reshape(-1, 2)
+        base_R = topo.routing_matrix(flows, np.float32)
         t0e = np.asarray(schedule.ev_t0, np.float32)
         t1e = np.asarray(schedule.ev_t1, np.float32)
         bounds = np.concatenate([[0.0], t0e[np.isfinite(t0e)],
@@ -326,19 +364,21 @@ class RouteSchedule:
             key = dwn.tobytes()
             if key not in key_to_state:
                 key_to_state[key] = len(routes_list)
+                # every flow with a surviving path takes route_avoiding's
+                # path; the others keep their dead base route
                 R = base_R.copy()
-                for f, (s, d) in enumerate(flows):
-                    p = topo.route_avoiding(s, d, dwn)
-                    if p is not None:
-                        R[f] = 0.0
-                        R[f, p] = 1.0
+                links, used, ok = topo.path_links(pairs[:, 0], pairs[:, 1],
+                                                  dwn)
+                R[ok] = 0.0
+                used &= ok[:, None]
+                R[np.nonzero(used)[0], links[used]] = 1.0
                 routes_list.append(R)
                 down_list.append(dwn)
             state_of.append(key_to_state[key])
         return cls(
             t0=bounds.astype(np.float32),
             state=np.asarray(state_of, np.int32),
-            routes=np.stack(routes_list).astype(np.float32),
+            routes=np.stack(routes_list),
             down=np.stack(down_list),
         )
 

@@ -51,6 +51,7 @@ from repro_torch.streams.workloads import (  # noqa: F401
     WORKLOADS,
     linkedin_tags,
     motivation_chain,
+    nexmark_q4,
     trending_topics,
     trucking_iot,
 )

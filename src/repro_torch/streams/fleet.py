@@ -590,6 +590,8 @@ _FIELD_SPECS: dict[str, tuple[tuple[str, ...], float]] = {
     "route_t": (("SR",), np.inf),
     "route_state": (("SR",), 0),
 }
+# the route-bank family, packed inside the ``pack_routes`` span
+_ROUTE_FIELDS = ("route_bank", "route_t", "route_state")
 
 
 def _alloc(shape: tuple, dtype, pinned: bool) -> np.ndarray:
@@ -813,31 +815,44 @@ class FleetRunner:
                      pinned: bool = False) -> dict[str, np.ndarray]:
         """Reset + slice-assign ``sims`` into (re)allocated ``rows``-row
         host buffers (one per ``_FIELD_SPECS`` field). Spare rows keep
-        their pad values — inert scenarios."""
+        their pad values — inert scenarios. The route-bank family is packed
+        inside a ``pack_routes`` span."""
         dims = {"F": shape.n_flows, "L": shape.n_links,
                 "I": shape.n_insts, "S": shape.n_sins, "E": shape.n_events,
                 "SR": shape.n_route_states}
         hosts = [{f: _host(getattr(s, f)) for f in _FIELD_SPECS}
                  for s in sims]
-        for field, (axes, pad) in _FIELD_SPECS.items():
+
+        def fill(field):
+            axes, pad = _FIELD_SPECS[field]
             first = hosts[0][field]
             full = (rows,) + tuple(dims[a] for a in axes)
             buf = bufs.get(field)
             if buf is None or buf.shape != full or buf.dtype != first.dtype:
                 buf = _alloc(full, first.dtype, pinned)
                 bufs[field] = buf
-            buf.fill(pad)
             for b, h in enumerate(hosts):
                 a = h[field]
+                if a.shape != full[1:]:
+                    buf[b].fill(pad)
                 buf[(b, *map(lambda n: slice(0, n), a.shape))] = a
-        if shape.n_route_states > 0:
-            # static-routing members of a rerouting bucket: their per-tick
-            # state lookup clamps to slot 0, which must hold their base R
-            bank = bufs["route_bank"]
-            for b, (s, h) in enumerate(zip(sims, hosts)):
-                if s.route_bank.shape[0] == 0:
-                    a = h["R"]
-                    bank[b, 0, :a.shape[0], :a.shape[1]] = a
+            buf[len(hosts):].fill(pad)
+
+        for field in _FIELD_SPECS:
+            if field not in _ROUTE_FIELDS:
+                fill(field)
+        with tracing.span("pack_routes", rows=rows):
+            for field in _ROUTE_FIELDS:
+                fill(field)
+            if shape.n_route_states > 0:
+                # static-routing members of a rerouting bucket: their
+                # per-tick state lookup clamps to slot 0, which must hold
+                # their base R
+                bank = bufs["route_bank"]
+                for b, (s, h) in enumerate(zip(sims, hosts)):
+                    if s.route_bank.shape[0] == 0:
+                        a = h["R"]
+                        bank[b, 0, :a.shape[0], :a.shape[1]] = a
         return {field: bufs[field] for field in _FIELD_SPECS}
 
     def _stack_bucket(self, sims: list[CompiledSim], shape: FleetShape,
@@ -1093,15 +1108,20 @@ class FleetRunner:
         loop's, bit for bit. The graphs are dropped when a campaign fails.
 
         The call records host spans (:mod:`repro_torch.tracing`) while
-        recording is on: ``campaign``; ``plan``; per chunk ``stage``,
-        ``transfer`` (on the copy worker), ``transfer_wait``, ``dispatch``
-        (inside it the tick loop's spans, or ``capture`` and ``replay``)
-        and ``collect``; ``recover``. ``last_stats``' ``stage_s``,
+        recording is on: ``campaign``; ``plan``; per chunk ``stage`` (inside
+        it ``pack_routes``, the route-bank family's packing), ``transfer``
+        (on the copy worker), ``transfer_wait``, ``dispatch`` (inside it the
+        tick loop's spans, or ``capture`` and ``replay``) and ``collect``;
+        ``recover``. ``last_stats``' ``stage_s``,
         ``transfer_s``, ``transfer_wait_s``, ``dispatch_s`` and ``block_s``
         are the sums of those spans' own clock readings, whether recording
         is on or off; ``n_ticks`` and ``n_updates`` count the bucket ticks
         and controller updates the tick loops ran, retries included, by
-        replay or eager; ``n_graph_captures``, ``n_graph_replays`` and
+        replay or eager; ``route_bank_bytes`` counts the route-bank bytes
+        staged for the card (padding included, retries too), and
+        ``route_gather_bytes`` the routing-matrix bytes the tick loops gather
+        (rows × F × L × 4 for every tick of a rerouting chunk, by replay or
+        eager); ``n_graph_captures``, ``n_graph_replays`` and
         ``n_graph_fallbacks`` (captures that raised, whose signature then
         runs eager) count the graph work, and ``graph_tick_share`` is the
         share of ``n_ticks`` that ran by replay."""
@@ -1186,11 +1206,15 @@ class FleetRunner:
             return stack
 
         ticks_run = updates_run = 0
+        # bytes of route bank staged for the card (padding included), and
+        # of routing matrix the tick loops gather, one [rows, F, L] a tick
+        # of a rerouting chunk, eager or replayed alike
+        bank_bytes = gather_bytes = 0
         graphs = self._graphs
         graphs0 = (graphs.captures, graphs.replays, graphs.fallbacks)
 
         def compute(bi, pack, xf, enf):
-            nonlocal ticks_run, updates_run
+            nonlocal ticks_run, updates_run, gather_bytes
             outs = graphs.run(
                 pack, plan[bi][1].n_apps, policy, n_ticks, dt, upd_every,
                 x_fixed=xf, alpha=alpha, n_groups=n_groups, qcap=qcap,
@@ -1198,7 +1222,15 @@ class FleetRunner:
                 t_event=float(t_event))
             ticks_run += n_ticks
             updates_run += -(-n_ticks // upd_every)
+            bank = pack["route_bank"]
+            if bank.shape[1]:
+                gather_bytes += (n_ticks * bank[:, 0].numel()
+                                 * bank.element_size())
             return outs
+
+        def staged(leaves):
+            nonlocal bank_bytes
+            bank_bytes += leaves["route_bank"].nbytes
 
         n_metrics = len(CAMPAIGN_METRICS)
         metrics_all = np.empty((len(sims), n_metrics), np.float32)
@@ -1416,6 +1448,7 @@ class FleetRunner:
             shape, rows = plan[bi][1], cap_rows[bi]
             _fire("pack", j)
             leaves = self._fill_bucket({}, chunk, shape, rows)
+            staged(leaves)
             xf, enf = self._gates(chunk, idxs, shape, rows, x_fixed)
             _fire("transfer", j)
             pack, xfd, enfd, ev = _to_device((leaves, xf, enf), s)
@@ -1559,6 +1592,7 @@ class FleetRunner:
                             (s, shape_t, rows, staged_n[s] % 3), {})
                         leaves = self._fill_bucket(bufs, chunk, shape, rows,
                                                    pinned=cuda)
+                        staged(leaves)
                         xf, enf = self._gates(chunk, idxs, shape, rows,
                                               x_fixed)
                     except Exception as e:  # noqa: BLE001 — to recovery
@@ -1610,6 +1644,11 @@ class FleetRunner:
                 inflight[s].clear()
             ex_holder[0].shutdown(wait=(status == "ok"),
                                   cancel_futures=True)
+            # the recursive bisection closes over itself: unbind it, or the
+            # cycle keeps every closure of this call, and through them the
+            # runner with its pinned slots and graphs, until the cyclic
+            # garbage collector happens to run
+            del _bisect
             if status != "ok":
                 self._campaign_bufs.clear()
                 graphs.clear()
@@ -1650,6 +1689,8 @@ class FleetRunner:
                 "block_s": block_s,
                 "n_ticks": ticks_run,
                 "n_updates": updates_run,
+                "route_bank_bytes": bank_bytes,
+                "route_gather_bytes": gather_bytes,
                 "n_graph_captures": n_capt,
                 "n_graph_replays": n_repl,
                 "n_graph_fallbacks": n_fall,

@@ -174,7 +174,8 @@ def _as_field(a, device) -> torch.Tensor:
         dtype = np.int64
     else:
         dtype = np.float32
-    return torch.tensor(a.astype(dtype), device=device)
+    # astype copies, so the field owns its memory; a host field is that copy
+    return torch.from_numpy(a.astype(dtype)).to(device)
 
 
 def sim_from_numpy(fields: "dict[str, np.ndarray]", *, tuples_per_mb: float,

@@ -125,6 +125,50 @@ def motivation_chain() -> StreamApp:
     )
 
 
+def nexmark_q4(auction_src: int = 32, bid_src: int = 96,
+               winning_bids: int = 128, categories: int = 5,
+               auction_mb_s: float = 4918.0,
+               bid_mb_s: float = 15082.0) -> StreamApp:
+    """NEXmark Q4, "average price for a category", as a Storm topology:
+    spouts on the auction and bid topics (Q4 reads no persons), a lock-step
+    join of each auction with its bids keyed by auction id that keeps the
+    winning bid of each closed auction, and an average of the winning bids
+    keyed by category, reported to one sink.
+
+    Apache Beam's ``NexmarkConfiguration`` defaults fix the event mix,
+    person : auction : bid = 1 : 3 : 46, at 200 / 500 / 100 B a mean event:
+    3 auctions and 46 bids join into 6,100 B, of which auctions are 1,500 B
+    (the join takes its inputs in proportion to their volumes, the default
+    ``join_share``), and the join keeps three ~100 B winning bids
+    (selectivity 0.05). Bids are key-grouped by auction with a Zipf 0.35
+    skew for the hot auctions; auctions and winning bids are spread evenly.
+    ``auction_mb_s`` and ``bid_mb_s`` are each topic's total rate over its
+    spouts; 1,000 MB/s of processing an instance keeps every operator off
+    the CPU bound, so the network decides."""
+    proc_rate = 1000.0
+    return StreamApp(
+        name="nexmark_q4",
+        operators=[
+            Operator("auction_src", auction_src, gen_rate=auction_mb_s,
+                     proc_rate=proc_rate),
+            Operator("bid_src", bid_src, gen_rate=bid_mb_s,
+                     proc_rate=proc_rate),
+            Operator("winning_bids", winning_bids, proc_rate=proc_rate,
+                     selectivity=0.05, join=True),
+            Operator("category_avg", categories, proc_rate=proc_rate,
+                     selectivity=0.01),
+            Operator("sink", 1, proc_rate=proc_rate, selectivity=0.0),
+        ],
+        edges=[
+            Edge("auction_src", "winning_bids", Grouping.KEY),
+            Edge("bid_src", "winning_bids", Grouping.KEY, key_skew=0.35),
+            Edge("winning_bids", "category_avg", Grouping.KEY),
+            Edge("category_avg", "sink", Grouping.GLOBAL),
+        ],
+        tuples_per_mb=8032.0,   # 124.5 B a mean event of the 1 : 3 : 46 mix
+    )
+
+
 WORKLOADS = {
     "TT": trending_topics,
     "TI": trucking_iot,

@@ -80,6 +80,7 @@ def test_spans_nest_under_one_campaign(traced):
     parent = {s.name: {by_id[s.parent].name for s in _named(rec, s.name)}
               for s in rec.spans if s.parent is not None}
     assert parent == {"plan": {"campaign"}, "stage": {"campaign"},
+                      "pack_routes": {"stage"},
                       "transfer": {"campaign"}, "transfer_wait": {"campaign"},
                       "dispatch": {"campaign"}, "collect": {"campaign"},
                       "schedule": {"dispatch"}, "update": {"dispatch"},
