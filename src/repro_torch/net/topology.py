@@ -328,6 +328,9 @@ class RouteSchedule:
     state: np.ndarray   # [K] int32 route-state index per interval
     routes: np.ndarray  # [S, F, L] f32 binary routing matrix per state
     down: np.ndarray    # [S, L] bool, links treated as failed per state
+    # each state's path of every flow, the form ``routes`` is built from
+    links: np.ndarray   # [S, F, 4] link ids
+    used: np.ndarray    # [S, F, 4] bool, which of them the flow takes
 
     @property
     def n_states(self) -> int:
@@ -346,14 +349,16 @@ class RouteSchedule:
         """Enumerate reachable route states from ``schedule``'s events."""
         F, L = len(flows), topo.n_links
         pairs = np.asarray(flows, np.int64).reshape(-1, 2)
-        base_R = topo.routing_matrix(flows, np.float32)
+        base_links, base_used, _ = topo.path_links(pairs[:, 0], pairs[:, 1])
+        base_R = np.zeros((F, L), np.float32)
+        base_R[np.nonzero(base_used)[0], base_links[base_used]] = 1.0
         t0e = np.asarray(schedule.ev_t0, np.float32)
         t1e = np.asarray(schedule.ev_t1, np.float32)
         bounds = np.concatenate([[0.0], t0e[np.isfinite(t0e)],
                                  t1e[np.isfinite(t1e)]]).astype(np.float32)
         bounds = np.unique(bounds[bounds >= 0.0])
         key_to_state: dict[bytes, int] = {}
-        state_of, routes_list, down_list = [], [], []
+        state_of, routes_list, down_list, paths = [], [], [], []
         for tb in bounds:
             # same f32 half-open [t0, t1) activity rule as caps_at/_caps_over
             active = (tb >= t0e) & (tb < t1e)
@@ -374,12 +379,16 @@ class RouteSchedule:
                 R[np.nonzero(used)[0], links[used]] = 1.0
                 routes_list.append(R)
                 down_list.append(dwn)
+                paths.append((np.where(ok[:, None], links, base_links),
+                              np.where(ok[:, None], used, base_used)))
             state_of.append(key_to_state[key])
         return cls(
             t0=bounds.astype(np.float32),
             state=np.asarray(state_of, np.int32),
             routes=np.stack(routes_list),
             down=np.stack(down_list),
+            links=np.stack([p[0] for p in paths]),
+            used=np.stack([p[1] for p in paths]),
         )
 
     # ---- host-side evaluation (numpy reference) ----------------------

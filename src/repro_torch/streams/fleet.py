@@ -110,6 +110,7 @@ from repro_torch.streams.simulator import (
     SimResult,
     _run_bucket,
     _validate_sim_inputs,
+    id_dtype,
     metric_index,
     resolve_upd_every,
     result_from_padded_row,
@@ -467,8 +468,26 @@ def _pad_route_fields(sim: CompiledSim, F: int, L: int,
     return bank, t, state
 
 
-def _padded_fields(sim: CompiledSim, shape: FleetShape) -> dict:
-    """``sim``'s fields zero-padded to ``shape`` as numpy arrays."""
+def _table_widths(sims: Sequence[CompiledSim]) -> tuple[int, int, int]:
+    """The route tables' sizes that cover every sim (S_t route states, K
+    links a flow, D flows a link): the table axes a bucket pads, like
+    ``F`` and ``L``."""
+    return (max(s.flow_links.shape[0] for s in sims),
+            max(s.flow_links.shape[2] for s in sims),
+            max(s.link_flows.shape[2] for s in sims))
+
+
+def _pad3(a, n0, n1, n2):
+    a = _host(a)
+    out = np.zeros((n0, n1, n2), a.dtype)
+    out[:a.shape[0], :a.shape[1], :a.shape[2]] = a
+    return out
+
+
+def _padded_fields(sim: CompiledSim, shape: FleetShape,
+                   widths: "tuple[int, int, int] | None" = None) -> dict:
+    """``sim``'s fields zero-padded to ``shape`` (and its route tables to
+    ``widths``, default its own) as numpy arrays."""
     F, L = shape.n_flows, shape.n_links
     I, S, E = shape.n_insts, shape.n_sins, shape.n_events
     if sim.n_apps > shape.n_apps:
@@ -487,6 +506,7 @@ def _padded_fields(sim: CompiledSim, shape: FleetShape) -> dict:
     f = False
     route_bank, route_t, route_state = _pad_route_fields(
         sim, F, L, shape.n_route_states)
+    ST, K, D = _table_widths([sim]) if widths is None else widths
     return dict(
         R=_pad2(sim.R, F, L),
         caps=_pad1(sim.caps, L, _PAD_CAP),
@@ -518,6 +538,8 @@ def _padded_fields(sim: CompiledSim, shape: FleetShape) -> dict:
         route_bank=route_bank,
         route_t=route_t,
         route_state=route_state,
+        flow_links=_pad3(sim.flow_links, ST, F, K),
+        link_flows=_pad3(sim.link_flows, ST, L, D),
     )
 
 
@@ -543,7 +565,8 @@ def stack_sims(
     if not sims:
         raise ValueError("empty fleet")
     shape = FleetShape.cover(sims) if shape is None else shape
-    padded = [_padded_fields(s, shape) for s in sims]
+    widths = _table_widths(sims)
+    padded = [_padded_fields(s, shape, widths) for s in sims]
     dev = sims[0].device
     return CompiledSim(
         tuples_per_mb=1.0, n_apps=shape.n_apps,
@@ -551,7 +574,8 @@ def stack_sims(
            for f in _FIELD_SPECS}), shape
 
 
-# field -> (padded-dim axes, pad value); dims keyed into {F, L, I, S, E, SR}.
+# field -> (padded-dim axes, pad value); dims keyed into {F, L, I, S, E, SR,
+# ST, K, D}.
 # A staging row never slice-assigned from a real scenario keeps exactly
 # these pad values — an *inert scenario*: zero generation and demand, huge-
 # capacity INTERNAL links no solver binds on, never-active events.
@@ -589,9 +613,18 @@ _FIELD_SPECS: dict[str, tuple[tuple[str, ...], float]] = {
     "route_bank": (("SR", "F", "L"), 0.0),
     "route_t": (("SR",), np.inf),
     "route_state": (("SR",), 0),
+    # route tables, one per route state (a static member of a rerouting
+    # bucket has one, its base routes', in slot 0); padded states are
+    # never selected
+    "flow_links": (("ST", "F", "K"), 0),
+    "link_flows": (("ST", "L", "D"), 0),
 }
+# the route tables hold ids of links and of flows, in the dtype the bucket's
+# padded axis needs (each member's own is no wider)
+_IDS_OF = {"flow_links": "L", "link_flows": "F"}
 # the route-bank family, packed inside the ``pack_routes`` span
-_ROUTE_FIELDS = ("route_bank", "route_t", "route_state")
+_ROUTE_FIELDS = ("route_bank", "route_t", "route_state", "flow_links",
+                 "link_flows")
 
 
 def _alloc(shape: tuple, dtype, pinned: bool) -> np.ndarray:
@@ -811,25 +844,29 @@ class FleetRunner:
     # ----------------------------------------------------------- staging
     @staticmethod
     def _fill_bucket(bufs: dict[str, np.ndarray], sims: list[CompiledSim],
-                     shape: FleetShape, rows: int,
-                     pinned: bool = False) -> dict[str, np.ndarray]:
+                     shape: FleetShape, rows: int, pinned: bool = False,
+                     widths: "tuple[int, int, int] | None" = None
+                     ) -> dict[str, np.ndarray]:
         """Reset + slice-assign ``sims`` into (re)allocated ``rows``-row
         host buffers (one per ``_FIELD_SPECS`` field). Spare rows keep
-        their pad values — inert scenarios. The route-bank family is packed
-        inside a ``pack_routes`` span."""
+        their pad values — inert scenarios. The route tables are padded to
+        ``widths`` (default: the widest of ``sims``). The route-bank family
+        is packed inside a ``pack_routes`` span."""
+        ST, K, D = _table_widths(sims) if widths is None else widths
         dims = {"F": shape.n_flows, "L": shape.n_links,
                 "I": shape.n_insts, "S": shape.n_sins, "E": shape.n_events,
-                "SR": shape.n_route_states}
+                "SR": shape.n_route_states, "ST": ST, "K": K, "D": D}
         hosts = [{f: _host(getattr(s, f)) for f in _FIELD_SPECS}
                  for s in sims]
 
         def fill(field):
             axes, pad = _FIELD_SPECS[field]
-            first = hosts[0][field]
+            dtype = (id_dtype(dims[_IDS_OF[field]]) if field in _IDS_OF
+                     else hosts[0][field].dtype)
             full = (rows,) + tuple(dims[a] for a in axes)
             buf = bufs.get(field)
-            if buf is None or buf.shape != full or buf.dtype != first.dtype:
-                buf = _alloc(full, first.dtype, pinned)
+            if buf is None or buf.shape != full or buf.dtype != dtype:
+                buf = _alloc(full, dtype, pinned)
                 bufs[field] = buf
             for b, h in enumerate(hosts):
                 a = h[field]
@@ -1117,13 +1154,14 @@ class FleetRunner:
         are the sums of those spans' own clock readings, whether recording
         is on or off; ``n_ticks`` and ``n_updates`` count the bucket ticks
         and controller updates the tick loops ran, retries included, by
-        replay or eager; ``route_bank_bytes`` counts the route-bank bytes
-        staged for the card (padding included, retries too), and
-        ``route_gather_bytes`` the routing-matrix bytes the tick loops gather
-        (rows × F × L × 4 for every tick of a rerouting chunk, by replay or
-        eager); ``n_graph_captures``, ``n_graph_replays`` and
-        ``n_graph_fallbacks`` (captures that raised, whose signature then
-        runs eager) count the graph work, and ``graph_tick_share`` is the
+        replay or eager; ``route_bank_bytes`` counts the bytes of route
+        bank, and of the route tables staged with it, for the card (padding
+        included, retries too), and ``route_gather_bytes`` the
+        routing-matrix bytes the tick loops gather (rows × F × L × 4 for
+        every controller update of a rerouting chunk, by replay or eager:
+        a tick reads only its state's route tables); ``n_graph_captures``,
+        ``n_graph_replays`` and ``n_graph_fallbacks`` (captures that
+        raised, whose signature then runs eager) count the graph work, and ``graph_tick_share`` is the
         share of ``n_ticks`` that ran by replay."""
         with tracing.timed("campaign", scenarios=len(sims)) as whole:
             return self._campaign(
@@ -1206,10 +1244,14 @@ class FleetRunner:
             return stack
 
         ticks_run = updates_run = 0
-        # bytes of route bank staged for the card (padding included), and
-        # of routing matrix the tick loops gather, one [rows, F, L] a tick
-        # of a rerouting chunk, eager or replayed alike
+        # bytes of route bank and its route tables staged for the card
+        # (padding included), and of routing matrix the tick loops gather,
+        # one [rows, F, L] a controller update of a rerouting chunk, eager
+        # or replayed alike
         bank_bytes = gather_bytes = 0
+        # one set of route-table sizes a bucket, so that every chunk of it
+        # stages the same shapes (and replays one graph)
+        widths = [_table_widths([sims[i] for i in idxs]) for idxs, _ in plan]
         graphs = self._graphs
         graphs0 = (graphs.captures, graphs.replays, graphs.fallbacks)
 
@@ -1220,17 +1262,20 @@ class FleetRunner:
                 x_fixed=xf, alpha=alpha, n_groups=n_groups, qcap=qcap,
                 solver=solver, enforce=enf, with_metrics=True,
                 t_event=float(t_event))
+            n_updates = -(-n_ticks // upd_every)
             ticks_run += n_ticks
-            updates_run += -(-n_ticks // upd_every)
+            updates_run += n_updates
             bank = pack["route_bank"]
             if bank.shape[1]:
-                gather_bytes += (n_ticks * bank[:, 0].numel()
+                gather_bytes += (n_updates * bank[:, 0].numel()
                                  * bank.element_size())
             return outs
 
         def staged(leaves):
             nonlocal bank_bytes
-            bank_bytes += leaves["route_bank"].nbytes
+            if leaves["route_bank"].shape[1]:
+                bank_bytes += sum(leaves[f].nbytes for f in (
+                    "route_bank", "flow_links", "link_flows"))
 
         n_metrics = len(CAMPAIGN_METRICS)
         metrics_all = np.empty((len(sims), n_metrics), np.float32)
@@ -1447,7 +1492,8 @@ class FleetRunner:
             s = j % n_streams
             shape, rows = plan[bi][1], cap_rows[bi]
             _fire("pack", j)
-            leaves = self._fill_bucket({}, chunk, shape, rows)
+            leaves = self._fill_bucket({}, chunk, shape, rows,
+                                       widths=widths[bi])
             staged(leaves)
             xf, enf = self._gates(chunk, idxs, shape, rows, x_fixed)
             _fire("transfer", j)
@@ -1591,7 +1637,8 @@ class FleetRunner:
                         bufs = self._campaign_bufs.setdefault(
                             (s, shape_t, rows, staged_n[s] % 3), {})
                         leaves = self._fill_bucket(bufs, chunk, shape, rows,
-                                                   pinned=cuda)
+                                                   pinned=cuda,
+                                                   widths=widths[bi])
                         staged(leaves)
                         xf, enf = self._gates(chunk, idxs, shape, rows,
                                               x_fixed)

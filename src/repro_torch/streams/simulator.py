@@ -30,8 +30,17 @@ tensors; ``_caps_over`` evaluates the whole ``[T, L]`` capacity trajectory
 once per run. Policies re-solve against ``caps(t_upd)`` at their update
 ticks; between updates the *network itself* enforces the current capacity.
 A sim compiled without a schedule (S = 0 sinusoids, E = 0 events) skips
-every dynamic term *by shape*. Mid-run rerouting gathers the active route
-state's routing matrix from a precompiled ``[S_r, F, L]`` bank per tick.
+every dynamic term *by shape*. Mid-run rerouting selects the active route
+state from a precompiled bank each tick.
+
+**Routes in index form:** a flow takes at most a few links, so the tick
+never reads the dense ``[F, L]`` routing matrix. It reads two index tables
+of the active route state: each flow's link ids ``flow_links`` [F, K] and
+each link's flow ids ``link_flows`` [L, D], ids shifted by one so that 0
+means none. A link's load is the sum of its flows' values, in the table's
+ascending order (fixed, so a run repeats bit for bit); a flow's scale is
+the minimum over its links'. The dense matrix serves the policies' solves
+only, and is gathered from the ``[S_r, F, L]`` bank at controller updates.
 """
 from __future__ import annotations
 
@@ -84,6 +93,11 @@ DATA_FIELDS = (
     "ev_t0", "ev_t1", "ev_link", "ev_scale",
     "route_bank", "route_t", "route_state",
 )
+# The routes' index tables (one pair per route state, see CompiledSim); the
+# reference has no such fields, so a sim built from DATA_FIELDS alone
+# derives them from its routing matrices
+ROUTE_TABLES = ("flow_links", "link_flows")
+SIM_FIELDS = DATA_FIELDS + ROUTE_TABLES
 
 
 def metric_index(name: str) -> int:
@@ -134,6 +148,12 @@ class CompiledSim:
     route_bank: Any      # [S_r, F, L] routing matrix per route state
     route_t: Any         # [S_r] interval start times (inf = padding)
     route_state: Any     # [S_r] state index per interval
+    # the routes in index form, one table per route state (a static sim
+    # has one, its base routes'): each flow's link ids and each link's
+    # flow ids in ascending order, ids shifted by one so that 0 means
+    # none; int16 where the ids fit, else int32
+    flow_links: Any      # [S_t, F, K]
+    link_flows: Any      # [S_t, L, D]
 
     @property
     def program(self) -> LinkProgram:
@@ -161,7 +181,7 @@ class CompiledSim:
     def to(self, device) -> "CompiledSim":
         """A copy with every tensor on ``device``."""
         return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device) for f in DATA_FIELDS})
+            self, **{f: getattr(self, f).to(device) for f in SIM_FIELDS})
 
 
 def _as_field(a, device) -> torch.Tensor:
@@ -178,15 +198,68 @@ def _as_field(a, device) -> torch.Tensor:
     return torch.from_numpy(a.astype(dtype)).to(device)
 
 
+def id_dtype(n_ids: int):
+    """The route tables' dtype for ids 1..``n_ids``: int16 where they fit,
+    else int32."""
+    return np.int16 if n_ids <= np.iinfo(np.int16).max else np.int32
+
+
+def _grouped(keys: np.ndarray, vals: np.ndarray, n: int,
+             n_vals: int) -> np.ndarray:
+    """An [n, W] table whose row k lists ``vals[keys == k] + 1`` in
+    ascending order and 0 after them; W is the largest group (at least 1),
+    the dtype ``id_dtype(n_vals)``."""
+    # one sort of (key, id) pairs packed into one integer
+    k, v = np.divmod(np.sort(keys * n_vals + vals), n_vals)
+    counts = np.bincount(k, minlength=n)
+    width = max(int(counts.max(initial=0)), 1)
+    pos = np.arange(k.size) - (np.cumsum(counts) - counts)[k]
+    out = np.zeros((n, width), id_dtype(n_vals))
+    out[k, pos] = v + 1
+    return out
+
+
+def route_tables(state: np.ndarray, flow: np.ndarray, link: np.ndarray,
+                 n_states: int, n_flows: int, n_links: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """The index form of ``n_states`` binary routing matrices from their
+    nonzeros (``state``, ``flow``, ``link``): ``flow_links`` [S, F, K] and
+    ``link_flows`` [S, L, D] (see :class:`CompiledSim`)."""
+    state, flow, link = (np.asarray(a, np.int64)
+                         for a in (state, flow, link))
+    fl = _grouped(state * n_flows + flow, link, n_states * n_flows, n_links)
+    lf = _grouped(state * n_links + link, flow, n_states * n_links, n_flows)
+    return (fl.reshape(n_states, n_flows, fl.shape[1]),
+            lf.reshape(n_states, n_links, lf.shape[1]))
+
+
+def _tables_of_matrices(R: np.ndarray, route_bank: np.ndarray
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """The route tables read off dense routing matrices: the bank's states,
+    or ``R`` for a static sim."""
+    mats = np.asarray(route_bank if route_bank.shape[0] else R[None])
+    if not np.isin(mats, (0.0, 1.0)).all():
+        raise ValueError("routing matrices must be binary (0 or 1)")
+    return route_tables(*np.nonzero(mats), *mats.shape)
+
+
 def sim_from_numpy(fields: "dict[str, np.ndarray]", *, tuples_per_mb: float,
                    n_apps: int, device) -> CompiledSim:
     """The port's CompiledSim from a reference CompiledSim's data fields as
     numpy arrays (``{f: np.asarray(getattr(jax_sim, f)) for f in
     DATA_FIELDS}``) plus its two static fields — so both packages can be
-    fed identical scenario state."""
+    fed identical scenario state. The route tables are taken from
+    ``fields`` where it holds them, else read off ``R`` and
+    ``route_bank``."""
     dev = resolve_device(device)
-    return CompiledSim(tuples_per_mb=float(tuples_per_mb), n_apps=int(n_apps),
-                       **{f: _as_field(fields[f], dev) for f in DATA_FIELDS})
+    tables = ((fields["flow_links"], fields["link_flows"])
+              if "flow_links" in fields else _tables_of_matrices(
+                  np.asarray(fields["R"]), np.asarray(fields["route_bank"])))
+    return CompiledSim(
+        tuples_per_mb=float(tuples_per_mb), n_apps=int(n_apps),
+        **{f: _as_field(fields[f], dev) for f in DATA_FIELDS},
+        **{f: torch.from_numpy(np.array(t)).to(dev)
+           for f, t in zip(ROUTE_TABLES, tables)})
 
 
 def _validate_sim_inputs(where: str, *,
@@ -240,7 +313,15 @@ def compile_sim(
     ``route_bank`` span inside it where a route bank is built."""
     dev = resolve_device(device)
     flows = graph.flow_pairs(machine_of_inst)
-    R = topo.routing_matrix(flows)
+    # every flow's path, as the routing matrix (eq. 1a, as
+    # Topology.routing_matrix builds it) and as the route tables
+    pairs = np.asarray(flows, np.int64).reshape(-1, 2)
+    links, taken, _ = topo.path_links(pairs[:, 0], pairs[:, 1])
+    fi, hop = np.nonzero(taken)
+    R = np.zeros((len(flows), topo.n_links))
+    R[fi, links[fi, hop]] = 1.0
+    tables = route_tables(np.zeros_like(fi), fi, links[fi, hop], 1,
+                          len(flows), topo.n_links)
     M_in = graph.in_matrix()
     # steady-state volumes -> expected input proportions per dst instance,
     # with semantic `join_share` overrides (paper's TI: the join consumes the
@@ -320,6 +401,9 @@ def compile_sim(
                 route_t[:reroute.n_intervals] = reroute.t0
                 route_state = np.zeros((sr,), np.int32)
                 route_state[:reroute.n_intervals] = reroute.state
+                k, fi, hop = np.nonzero(reroute.used)
+                tables = route_tables(k, fi, reroute.links[k, fi, hop],
+                                      reroute.n_states, F, L)
     fields = dict(
         R=R,
         caps=topo.capacities,
@@ -351,6 +435,8 @@ def compile_sim(
         route_bank=route_bank,
         route_t=route_t,
         route_state=route_state,
+        flow_links=tables[0],
+        link_flows=tables[1],
     )
     return sim_from_numpy(fields, tuples_per_mb=float(graph.app.tuples_per_mb),
                           n_apps=int(n_apps), device=dev)
@@ -461,8 +547,33 @@ def _metrics_epilogue(sink, wait, load, caps_grid, path_w, dt: float,
 # --------------------------------------------------------------------------
 # one simulation tick (shared by all policies)
 # --------------------------------------------------------------------------
+def _by_ids(v: torch.Tensor, ids: torch.Tensor, none: float) -> torch.Tensor:
+    """``v`` read at the shifted ``ids`` [N, W]: id 0 reads ``none``, id i
+    reads ``v[i - 1]`` (one pad and one gather, no index arithmetic)."""
+    ext = torch.nn.functional.pad(v, (1, 0), value=none)
+    return ext.expand(ids.shape[0], -1).gather(1, ids)
+
+
+def _link_sums(v: torch.Tensor, link_flows: torch.Tensor) -> torch.Tensor:
+    """Per link, the sum of the per-flow ``v`` over the link's flows, in
+    the order ``link_flows`` lists them (a fixed order, no atomics)."""
+    return _by_ids(v, link_flows, 0.0).sum(-1)
+
+
+def _flow_mins(v: torch.Tensor, flow_links: torch.Tensor) -> torch.Tensor:
+    """Per flow, the smallest per-link ``v`` over the flow's links, for a
+    ``v`` of at most 1: a "no link" slot reads 1.0, which changes no such
+    minimum, and a flow on no link gets 1.0."""
+    return _by_ids(v, flow_links, 1.0).amin(-1)
+
+
+def _routes(sim: CompiledSim, state: int = 0):
+    """Route state ``state``'s index tables, widened to int64 indices."""
+    return sim.flow_links[state].long(), sim.link_flows[state].long()
+
+
 def _tick(sim: CompiledSim, Qs, Qr, x, dt, qcap, caps_t=None, enforce=True,
-          R_t=None):
+          routes=None):
     """One fluid step against the *current* link capacities ``caps_t``.
 
     ``M_in`` and ``w_out`` have exactly one nonzero per flow column (the
@@ -475,10 +586,11 @@ def _tick(sim: CompiledSim, Qs, Qr, x, dt, qcap, caps_t=None, enforce=True,
     a Python bool for a lone sim and a per-scenario bool tensor in a fleet
     bucket: an un-enforced row multiplies its transfer by exactly 1.0, so a
     static scenario padded into a scheduled bucket keeps its static
-    transfer bit for bit. ``R_t`` is the tick's active routing matrix when
-    a route bank is attached (``None`` reads ``sim.R``).
+    transfer bit for bit. ``routes`` is the tick's active route tables
+    ``(flow_links [F, K], link_flows [L, D])`` as int64 indices (``None``
+    reads route state 0's); the dense routing matrix is never read.
     """
-    R = sim.R if R_t is None else R_t
+    flow_links, link_flows = _routes(sim) if routes is None else routes
     dst, src = sim.dst_of_flow, sim.src_of_flow
 
     # receiver-window flow control: never overflow the receive buffer
@@ -489,13 +601,12 @@ def _tick(sim: CompiledSim, Qs, Qr, x, dt, qcap, caps_t=None, enforce=True,
         # link-feasible, so the transfer needs no per-tick capacity check
         transfer = desired
     else:
-        load0 = desired @ R                                      # [L] MB
+        load0 = _link_sums(desired, link_flows)                  # [L] MB
         lscale = torch.where(
             load0 > caps_t * dt,
             torch.clamp(caps_t * dt / torch.clamp_min(load0, _EPS), 0.0, 1.0),
             1.0)
-        fscale = torch.where(R > 0, lscale[None, :], _INF).amin(1)
-        fscale = torch.where(torch.isfinite(fscale), fscale, 1.0)
+        fscale = _flow_mins(lscale, flow_links)
         if enforce is not True:
             fscale = torch.where(enforce, fscale, 1.0)
         transfer = desired * fscale
@@ -557,7 +668,7 @@ def _tick(sim: CompiledSim, Qs, Qr, x, dt, qcap, caps_t=None, enforce=True,
         Qs / torch.clamp_min(x, _EPS) + Qr / torch.clamp_min(drain, _EPS),
         _LAT_CAP)
 
-    link_load = transfer @ R / dt                                # [L] MB/s
+    link_load = _link_sums(transfer, link_flows) / dt            # [L] MB/s
     return Qs, Qr, transfer, drain, (sink_mb, sink_mb_app, wait, link_load)
 
 
@@ -705,10 +816,12 @@ class SimResult:
 # --------------------------------------------------------------------------
 POLICIES = ("tcp", "fixed", "appaware", "appfair")
 
-# The fields a tick reads (the schedule and route-bank fields are consumed
-# once per run, before the loop, by `_caps_over` / `_route_states_over`).
+# The fields an update and a tick read (the schedule and route-bank fields
+# are consumed once per run, before the loop, by `_caps_over` /
+# `_route_states_over`; the loop hands `_update` the routing matrix and
+# `_advance` the route tables of the tick's state).
 STEP_FIELDS = (
-    "R", "caps", "kinds", "has_links", "M_in", "w_out", "p_in", "proc_rate",
+    "caps", "kinds", "has_links", "M_in", "w_out", "p_in", "proc_rate",
     "selectivity", "gen_rate", "is_join", "is_sink", "join_dst", "droppable",
     "dst_of_flow", "src_of_flow", "w_of_flow", "app_of_flow", "app_of_inst",
 )
@@ -763,15 +876,17 @@ def _update(sim: CompiledSim, policy: str, carry, R_upd, caps_upd, x_fixed,
              torch.zeros_like(mu_acc), oc), reb)
 
 
-def _advance(sim: CompiledSim, policy: str, carry, caps_t, R_t, enforce,
+def _advance(sim: CompiledSim, policy: str, carry, caps_t, routes, enforce,
              *, dt: float, qcap: float):
-    """One tick at the current rates. Returns ``(carry', (sink, sink_app,
-    wait, load))``; a policy that never reads prod_rate/B/mu_acc doesn't
-    pay their per-tick ops."""
+    """One tick at the current rates, on the route tables ``routes`` (see
+    :func:`_tick`). Returns ``(carry', (sink, sink_app, wait, load))``; a
+    policy that never reads prod_rate/B/mu_acc doesn't pay their per-tick
+    ops."""
     (Qs, Qr, B, x, v_acc, ls, lr, prod_rate, drain_ewma, mu, mu_acc,
      oc) = carry
     Qs1, Qr1, transfer, drain, ys = _tick(
-        sim, Qs, Qr, x, dt, qcap, caps_t=caps_t, enforce=enforce, R_t=R_t)
+        sim, Qs, Qr, x, dt, qcap, caps_t=caps_t, enforce=enforce,
+        routes=routes)
     if policy == "tcp":
         t_in = sim.M_in @ transfer
         out_i = sim.selectivity * t_in + sim.gen_rate * dt
@@ -821,21 +936,27 @@ def _run(sim: CompiledSim, policy: str, n_ticks: int, dt: float,
 
     carry = _init_carry(policy, F, sim.n_apps, dev)
     no_rebuild = torch.zeros((), dtype=torch.bool, device=dev)
+    flow_links, link_flows = sim.flow_links.long(), sim.link_flows.long()
+    routes = flow_links[0], link_flows[0]
     ys_all, reb_all = [], []
     for tick in range(n_ticks):
         caps_t = caps_sched[tick] if dynamic else None
         caps_upd = sim.caps if caps_t is None else caps_t
-        # active routing matrix: one [F, L] bank gather per tick
-        R_t = (sim.route_bank.index_select(0, states_seq[tick:tick + 1])[0]
-               if rerouting else None)
-        R_upd = sim.R if R_t is None else R_t
+        if rerouting:
+            # the active state's route tables, a few bytes a flow
+            state = states_seq[tick:tick + 1]
+            routes = (flow_links.index_select(0, state)[0],
+                      link_flows.index_select(0, state)[0])
         reb = no_rebuild
         if tick % upd_every == 0:
+            # the dense routing matrix, for the policy's solve only
+            R_upd = (sim.route_bank.index_select(0, state)[0] if rerouting
+                     else sim.R)
             with tracing.span("update", tick=tick):
                 carry, reb = _update(sim, policy, carry, R_upd, caps_upd,
                                      x_fixed, **kw)
         with tracing.span("advance", tick=tick):
-            carry, ys = _advance(sim, policy, carry, caps_t, R_t, enforce,
+            carry, ys = _advance(sim, policy, carry, caps_t, routes, enforce,
                                  dt=dt, qcap=qcap)
         ys_all.append(ys)
         reb_all.append(reb)
@@ -857,7 +978,7 @@ def _run_bucket(pack: "dict[str, torch.Tensor]", n_apps: int, policy: str,
                 with_metrics: bool = True, t_event: float = 0.0,
                 stepwise: bool = False):
     """The tick loop of a fleet bucket: ``pack`` holds every
-    :data:`DATA_FIELDS` tensor with a leading scenario axis [B, ...] (one
+    :data:`SIM_FIELDS` tensor with a leading scenario axis [B, ...] (one
     padded shape, see ``repro_torch.streams.fleet``); ``x_fixed`` is [B, F]
     for the fixed policy and ``enforce`` a [B] bool gate (default: every
     row enforces its schedule). Returns what :func:`_run` returns, each
@@ -906,7 +1027,7 @@ def _bucket_ticks(pack, n_apps, policy, n_ticks, dt, upd_every, x_fixed,
 
     def sim_of(f: dict):
         return CompiledSim(tuples_per_mb=1.0, n_apps=n_apps,
-                           **{k: f.get(k) for k in DATA_FIELDS})
+                           **{k: f.get(k) for k in SIM_FIELDS})
 
     with tracing.span("schedule", rows=Bn):
         caps_sched = (vmap(lambda f: _caps_over(sim_of(f), ts))(
@@ -932,8 +1053,8 @@ def _bucket_ticks(pack, n_apps, policy, n_ticks, dt, upd_every, x_fixed,
         return waterfill_args(sim_of(f).program_at(caps_upd, R=R_upd),
                               _flow_state(c), dt * upd_every)
 
-    def advance(f, c, caps_t, R_t, en):
-        return _advance(sim_of(f), policy, c, caps_t, R_t, en, dt=dt,
+    def advance(f, c, caps_t, routes, en):
+        return _advance(sim_of(f), policy, c, caps_t, routes, en, dt=dt,
                         qcap=qcap)
 
     v_update = vmap(update, in_dims=(0, 0, 0, 0,
@@ -941,23 +1062,28 @@ def _bucket_ticks(pack, n_apps, policy, n_ticks, dt, upd_every, x_fixed,
                                      0 if waterfill else None))
     v_wf_args = vmap(wf_args)
     dyn = 0 if dynamic else None
-    v_advance = vmap(advance, in_dims=(0, 0, dyn, 0 if rerouting else None,
-                                       dyn))
+    v_advance = vmap(advance, in_dims=(0, 0, dyn, 0, dyn))
 
     carry = tuple(
         tuple(t.expand(Bn, *t.shape).contiguous() for t in c)
         if isinstance(c, tuple) else c.expand(Bn, *c.shape).contiguous()
         for c in _init_carry(policy, F, n_apps, dev))
     no_rebuild = torch.zeros((Bn,), dtype=torch.bool, device=dev)
+    flow_links = pack["flow_links"].long()
+    link_flows = pack["link_flows"].long()
+    routes = flow_links[:, 0], link_flows[:, 0]
     ys_all, reb_all = [], []
     for tick in range(n_ticks):
         caps_t = caps_sched[:, tick] if dynamic else None
         caps_upd = pack["caps"] if caps_t is None else caps_t
-        R_t = (pack["route_bank"][rows, states_seq[:, tick]] if rerouting
-               else None)
-        R_upd = R if R_t is None else R_t
+        if rerouting:
+            # each row's active route tables, a few bytes a flow
+            state = states_seq[:, tick]
+            routes = flow_links[rows, state], link_flows[rows, state]
         reb = no_rebuild
         if tick % upd_every == 0:
+            # the dense routing matrix, for the policy's solve only
+            R_upd = pack["route_bank"][rows, state] if rerouting else R
             with tracing.span("update", tick=tick):
                 per_link = None
                 if waterfill:
@@ -971,7 +1097,7 @@ def _bucket_ticks(pack, n_apps, policy, n_ticks, dt, upd_every, x_fixed,
                 carry, reb = v_update(step, carry, R_upd, caps_upd, x_fixed,
                                       per_link)
         with tracing.span("advance", tick=tick):
-            carry, ys = v_advance(step, carry, caps_t, R_t,
+            carry, ys = v_advance(step, carry, caps_t, routes,
                                   enforce if dynamic else None)
         ys_all.append(ys)
         reb_all.append(reb)

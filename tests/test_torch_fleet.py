@@ -289,11 +289,11 @@ class TestBatchedSteps:
         for gate in ([True, True], [False, True]):
             en = torch.tensor(gate)
             out = torch.func.vmap(lambda *a: ps._tick(
-                dataclasses.replace(stacked, **dict(zip(ps.DATA_FIELDS,
+                dataclasses.replace(stacked, **dict(zip(ps.SIM_FIELDS,
                                                         a[5:]))),
                 a[0], a[1], a[2], DT, 8.0, caps_t=a[3], enforce=a[4]))(
                 Qs, Qr, x, caps_t, en,
-                *(getattr(stacked, f) for f in ps.DATA_FIELDS))
+                *(getattr(stacked, f) for f in ps.SIM_FIELDS))
             for b, s in enumerate(sims):
                 ref = ps._tick(pad_sim(s, shape), Qs[b], Qr[b], x[b], DT, 8.0,
                                caps_t=caps_t[b] if gate[b] else None)

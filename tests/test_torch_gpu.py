@@ -725,6 +725,48 @@ def test_campaign_from_graphs_is_the_eager_loop(policy, solver):
     assert (n_eager > 0) == (solver == "waterfill")
 
 
+def test_rerouting_campaign_from_graphs_is_the_eager_loop():
+    """A small fat tree whose aggregation links fail and are routed around,
+    beside static scenarios: each replayed chunk (its ticks on the route
+    tables of their state, the dense bank gathered at controller updates)
+    gives the eager loop's rows bit for bit, and each row is the
+    scenario's own ``simulate`` on the card as the campaign tests hold
+    them."""
+    from repro_torch.net.topology import fat_tree, link_failure_schedule
+    from repro_torch.streams import (FleetRunner, compile_sim, nexmark_q4,
+                                     parallelize, round_robin, simulate)
+
+    dev = _cuda()
+    topo = fat_tree(4, 4, 4, up=125.0, internal=125.0)
+    internal = np.arange(32, topo.n_links)
+    rng = np.random.default_rng(5)
+    sims = []
+    for k in range(12):
+        graph = parallelize(nexmark_q4(2, 6, 8, 5, 307.4, 942.6), seed=k)
+        sched = None if k % 4 == 0 else link_failure_schedule(
+            topo, sorted(rng.choice(internal, 2, replace=False)), 2.5, 6.5,
+            0.1)
+        sims.append(compile_sim(graph, topo,
+                                round_robin(graph, topo.n_machines),
+                                schedule=sched, reroute=sched is not None,
+                                device="cpu"))
+    kw = dict(seconds=10.0, dt=0.5, solver="waterfill", chunk_rows=4,
+              t_event=3.0)
+    want = _eager_runner(dev).run_campaign(sims, "appaware", **kw).metrics
+    runner = FleetRunner(device=dev)
+    for call in (1, 2):
+        got = runner.run_campaign(sims, "appaware", **kw)
+        np.testing.assert_array_equal(got.metrics, want)
+        st = runner.last_stats
+        assert st["n_graph_fallbacks"] == 0 and st["route_gather_bytes"] > 0
+    assert st["graph_tick_share"] == 1.0
+    for i, sim in enumerate(sims):
+        one = simulate(sim, "appaware", seconds=10.0, dt=0.5,
+                       solver="waterfill", t_event=3.0, device=dev)
+        np.testing.assert_allclose(got.metrics[i], one.metrics, rtol=1e-5,
+                                   atol=1e-6)
+
+
 def test_graph_spans_take_the_place_of_the_tick_spans():
     """Recorded on the card: a first call's eager chunk records its tick
     spans, each signature one ``capture`` (with no tick span of its own:

@@ -4,11 +4,14 @@ per-flow ``route`` and ``route_avoiding`` they replace, with ends, cores
 or nothing left to route around. The campaign's counters, on a tiny
 NEXmark Q4 pod whose aggregation links fail and are routed around:
 ``route_bank_bytes``
-is the bytes of every route bank packed for the card, padding included,
-and ``route_gather_bytes`` is rows × flows × links × 4 for every tick of a
-chunk that carries a bank; a static chunk gathers nothing. The staging
-records a ``pack_routes`` span inside each ``stage``. On a card the counts
-are the same whether a chunk runs eager or replays its graph."""
+is the bytes of every route bank packed for the card, and of the route
+tables packed with it, padding included, and ``route_gather_bytes`` is
+rows × flows × links × 4 for every controller update of a chunk that
+carries a bank (a tick reads its route state's tables, not the bank); a
+static chunk gathers nothing. The staging records a ``pack_routes`` span
+inside each ``stage``. On a card the counts are the same whether a chunk
+runs eager or replays its graph. A rerouting campaign's rows are each
+scenario's ``simulate``."""
 import functools
 import gc
 import weakref
@@ -30,10 +33,12 @@ from repro_torch.streams import (
     nexmark_q4,
     parallelize,
     round_robin,
+    simulate,
 )
 
 SECONDS, DT = 10.0, 0.5
 N_TICKS = int(SECONDS / DT)
+N_UPDATES = -(-N_TICKS // 10)        # appaware re-solves every 5 s
 KW = dict(seconds=SECONDS, dt=DT, solver="waterfill", chunk_rows=4,
           t_event=3.0)
 
@@ -105,21 +110,24 @@ def test_route_bank_is_the_per_flow_reroute():
 
 
 def _banks(monkeypatch):
-    """Every route bank the runner packs, as (shape, bytes)."""
+    """Every route bank the runner packs, as (shape, bytes of the bank and
+    of its route tables)."""
     seen = []
     fill = FleetRunner._fill_bucket
 
     def recorded(*a, **kw):
         leaves = fill(*a, **kw)
-        seen.append((leaves["route_bank"].shape, leaves["route_bank"].nbytes))
+        seen.append((leaves["route_bank"].shape,
+                     sum(leaves[f].nbytes for f in (
+                         "route_bank", "flow_links", "link_flows"))))
         return leaves
     monkeypatch.setattr(FleetRunner, "_fill_bucket", staticmethod(recorded))
     return seen
 
 
 def _expected(seen):
-    bank = sum(n for _, n in seen)
-    gather = sum(N_TICKS * rows * F * L * 4
+    bank = sum(n for (_, sr, _, _), n in seen if sr)
+    gather = sum(N_UPDATES * rows * F * L * 4
                  for (rows, sr, F, L), _ in seen if sr)
     return bank, gather
 
@@ -183,3 +191,18 @@ def test_replayed_chunks_count_as_eager_ones(monkeypatch):
     assert (st["route_bank_bytes"], st["route_gather_bytes"]) == _expected(seen)
     assert (st["route_bank_bytes"], st["route_gather_bytes"]) == (
         first["route_bank_bytes"], first["route_gather_bytes"])
+
+
+def test_a_rerouting_campaign_is_each_scenario_simulated():
+    """The rows of a campaign over rerouting and static scenarios (the
+    route tables of each row's state, the dense bank at updates) against
+    each scenario's own ``simulate``, as the campaign tests hold them."""
+    sims = _sims()
+    runner = FleetRunner(device="cpu", tick_overhead=15e3)
+    cr = runner.run_campaign(sims, "appaware", **KW)
+    for i, sim in enumerate(sims):
+        one = simulate(sim, "appaware", seconds=SECONDS, dt=DT,
+                       solver="waterfill", t_event=KW["t_event"],
+                       device="cpu")
+        np.testing.assert_allclose(cr.metrics[i], one.metrics, rtol=1e-5,
+                                   atol=1e-6)
